@@ -1,0 +1,108 @@
+"""Reader of the reference's checkpoints (``repro/training/checkpoint.py``
+writes them) and the weight carry-over into the port's modules.
+
+A checkpoint is msgpack of ``{"meta": {...}, "arrays": {key: {"dtype",
+"shape", "data"}}}`` with keys the ``/``-joined parameter-tree paths
+(``"large/down/0/conv1"``); ``None`` leaves (the UNet's identity ``skip``)
+are absent.  The decoder below covers the msgpack types those files use,
+so the port needs no msgpack package.
+"""
+from __future__ import annotations
+
+import struct
+from pathlib import Path
+from typing import Dict
+
+import numpy as np
+import torch
+
+# fixed-width msgpack formats: type byte -> (kind, payload width or
+# struct code of the value)
+_SIZED = {0xc4: ("bin", ">B"), 0xc5: ("bin", ">H"), 0xc6: ("bin", ">I"),
+          0xd9: ("str", ">B"), 0xda: ("str", ">H"), 0xdb: ("str", ">I"),
+          0xdc: ("array", ">H"), 0xdd: ("array", ">I"),
+          0xde: ("map", ">H"), 0xdf: ("map", ">I")}
+_INTS = {0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q",
+         0xd0: ">b", 0xd1: ">h", 0xd2: ">i", 0xd3: ">q"}
+
+
+def _decode(buf: bytes, pos: int):
+    """Decode one msgpack object at ``pos``; returns ``(value, next pos)``."""
+    b = buf[pos]
+    pos += 1
+    if b <= 0x7f:
+        return b, pos
+    if b >= 0xe0:
+        return b - 0x100, pos
+    if 0x80 <= b <= 0x8f:
+        return _container("map", b & 0x0f, buf, pos)
+    if 0x90 <= b <= 0x9f:
+        return _container("array", b & 0x0f, buf, pos)
+    if 0xa0 <= b <= 0xbf:
+        n = b & 0x1f
+        return buf[pos:pos + n].decode("utf-8"), pos + n
+    if b == 0xc0:
+        return None, pos
+    if b in _INTS:
+        code = _INTS[b]
+        return struct.unpack_from(code, buf, pos)[0], pos + struct.calcsize(code)
+    if b in _SIZED:
+        kind, code = _SIZED[b]
+        n = struct.unpack_from(code, buf, pos)[0]
+        pos += struct.calcsize(code)
+        if kind == "bin":
+            return bytes(buf[pos:pos + n]), pos + n
+        if kind == "str":
+            return buf[pos:pos + n].decode("utf-8"), pos + n
+        return _container(kind, n, buf, pos)
+    raise ValueError(f"unsupported msgpack type byte 0x{b:02x} at {pos - 1}")
+
+
+def _container(kind: str, n: int, buf: bytes, pos: int):
+    if kind == "array":
+        out = []
+        for _ in range(n):
+            v, pos = _decode(buf, pos)
+            out.append(v)
+        return out, pos
+    out = {}
+    for _ in range(n):
+        k, pos = _decode(buf, pos)
+        out[k], pos = _decode(buf, pos)
+    return out, pos
+
+
+def unpackb(data: bytes):
+    """Decode a msgpack document (the subset the checkpoints use)."""
+    value, end = _decode(data, 0)
+    if end != len(data):
+        raise ValueError(f"{len(data) - end} trailing bytes after msgpack")
+    return value
+
+
+def load_flat(path) -> Dict[str, np.ndarray]:
+    """``{"large/down/0/conv1": ndarray, ...}`` from a checkpoint file."""
+    payload = unpackb(Path(path).read_bytes())
+    return {
+        k: np.frombuffer(v["data"], dtype=v["dtype"]).reshape(v["shape"])
+        for k, v in payload["arrays"].items()
+    }
+
+
+def subtree(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    """The entries under ``prefix/``, with the prefix stripped."""
+    head = prefix + "/"
+    return {k[len(head):]: v for k, v in flat.items() if k.startswith(head)}
+
+
+def params_from_jax(flat: Dict[str, np.ndarray], cfg) -> Dict[str, torch.Tensor]:
+    """State dict of the port's denoiser for one net's flat reference
+    parameters: ``/`` paths become ``.`` names, UNet conv kernels go from
+    HWIO to OIHW, dense weights stay ``(cin, cout)`` for ``x @ W``."""
+    out = {}
+    for key, a in flat.items():
+        t = torch.tensor(np.array(a, dtype=np.float32))
+        if cfg.kind == "unet" and t.ndim == 4:
+            t = t.permute(3, 2, 0, 1).contiguous()
+        out[key.replace("/", ".")] = t
+    return out

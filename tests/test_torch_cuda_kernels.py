@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, bit for bit: payload ints, scales and stepped rows.  Imports no JAX,
+so it runs on a machine with only PyTorch and the CUDA toolkit:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Without a card every test skips (the kernels have no CPU build)."""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.fused_sampler.ops import (fused_cfg_step_dequant,
+                                                   fused_cfg_step_quant)
+from repro_torch.kernels.fused_sampler.ref import (fused_cfg_step_dequant_ref,
+                                                   fused_cfg_step_quant_ref)
+from repro_torch.kernels.quant.ops import dequant_int8, quant_int8
+from repro_torch.kernels.quant.ref import dequant_int8_ref, quant_int8_ref
+
+# main-path wire rows (4 channels x batch 1 and 8, L = 8*8), ragged rows,
+# and a row longer than one warp holds (the block-per-row kernel)
+SHAPES = [(4, 64), (32, 64), (13, 17), (1, 5), (3, 1500)]
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+COEFFS = {"ddim": [0.4, 0.6], "rf": [-0.02, 0.0]}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    return torch.device("cuda")
+
+
+def _inputs(shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(DTYPES[dtype]).to(device) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("mode", sorted(COEFFS))
+@pytest.mark.parametrize("guidance", [1.0, 3.5])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_boundary_kernels_equal_plain(cuda_device, shape, guidance, mode,
+                                      dtype):
+    x, ec, eu = _inputs(shape, dtype, cuda_device, 5)
+    cf = torch.tensor(COEFFS[mode], device=cuda_device)
+    q, s = fused_cfg_step_quant(x, ec, eu, cf, guidance=guidance, mode=mode)
+    qr, sr = fused_cfg_step_quant_ref(x, ec, eu, cf, guidance=guidance,
+                                      mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    out = fused_cfg_step_dequant(q, s, ec, eu, cf, guidance=guidance,
+                                 mode=mode)
+    ref = fused_cfg_step_dequant_ref(q, s, ec, eu, cf, guidance=guidance,
+                                     mode=mode)
+    torch.cuda.synchronize()
+    assert out.dtype == ec.dtype and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_quant_kernels_equal_plain(cuda_device, shape, dtype):
+    x, _, _ = _inputs(shape, dtype, cuda_device, 6)
+    x[0] = 0  # an all-zero row takes scale 1.0
+    q, s = quant_int8(x)
+    qr, sr = quant_int8_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert float(s[0, 0]) == 1.0
+    assert torch.equal(dequant_int8(q, s), dequant_int8_ref(q, s))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_bad_operands(cuda_device):
+    x = torch.zeros(4, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_int8(x.t())
+    with pytest.raises(TypeError, match="dtype"):
+        quant_int8(x.half())
+    with pytest.raises(ValueError, match="on the CPU or all on CUDA"):
+        fused_cfg_step_quant(x, x, x, torch.zeros(2))
+    with pytest.raises(ValueError, match="shape"):
+        fused_cfg_step_quant(x, x, x[:2], torch.zeros(2, device=cuda_device))

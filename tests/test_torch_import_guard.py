@@ -1,0 +1,63 @@
+"""The port stands alone: every ``repro_torch`` module imports, and a toy
+relay runs on the CPU, in a process where ``jax`` and the reference
+package ``repro`` cannot be imported; no port source imports either."""
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+_GUARDED = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None       # any `import jax` now raises ImportError
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+
+import torch
+from repro_torch.core.relay import execute_program
+from repro_torch.diffusion.families import SPECS
+from repro_torch.serving.arms import relay_program
+
+toy = lambda p, x, t, c: 0.5 * x + 0.05 * torch.tanh(x)
+models = {r: (toy, None) for r in ("large", "small")}
+x = torch.randn(2, 8, 8, 4, generator=torch.Generator().manual_seed(0))
+for fam in ("XL", "F3"):
+    for fused in (False, True):
+        prog = relay_program(fam, 15, compress=True)
+        out, info = execute_program(SPECS[fam](), prog, models, x, None,
+                                    fused_boundary=fused)
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        assert info["transfer_bytes"] == 2 * 4 * 64 + 2 * 4 * 4
+print("ok", len(names))
+"""
+
+
+def test_port_imports_and_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-c", _GUARDED], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.startswith("ok")
+
+
+def test_no_port_source_imports_jax_or_the_reference():
+    bad = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)[\s.])",
+                     re.M)
+    sources = sorted(PORT.rglob("*.py"))
+    assert sources
+    offenders = [str(p.relative_to(REPO)) for p in sources
+                 if bad.search(p.read_text())]
+    assert offenders == []
+    smoke = (REPO / "chip_smoke.py").read_text()
+    assert not bad.search(smoke)
