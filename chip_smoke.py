@@ -17,12 +17,15 @@ mismatch:
 3. the main path: the trained families on the card, ``generate_bucketed``
    for 8 requests on each of the 11 raw arms and of the 10 compressed
    twins (fused and unfused boundaries, which must agree), then
-   ``quality_table``; every kernel must have launched on this path;
+   ``quality_table``; every kernel must have launched on this path; a
+   request re-run alone and in a pair agrees with its row of 8 to 1e-4;
 4. card against CPU: 2 requests per family on the same host-drawn noise;
 5. times: per-arm ms per request (host clock around a synchronized
-   run) and the device's busy share of one run; per kernel, the device
-   time per call (profiler) and the time per back-to-back call (CUDA
-   events) beside the plain version's, the library call's and the bound.
+   run) and the device's busy share of one run; the launch floor (an
+   empty kernel); per kernel, the device time per call (profiler) and the
+   time per back-to-back call (CUDA events) beside the plain version's,
+   the library call's, the byte/operation bound and the floor (that bound
+   or the empty kernel's time, whichever is larger).
 
 Prints a ``kernels`` JSON line, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -86,10 +89,10 @@ def time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int = 50):
+def device_ms(fn, iters: int = 50) -> float:
     """Device time of one call of ``fn``: the durations of the kernels it
-    launched, from the profiler (CUPTI), over ``iters`` calls.  None when
-    the profiler records no device activity."""
+    launched, from the profiler (CUPTI), over ``iters`` calls.  Raises
+    when the profiler records no device activity."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -99,32 +102,30 @@ def device_ms(fn, iters: int = 50):
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / 1e3 / iters if us > 0 else None
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / iters
 
 
-def busy(fn) -> dict:
-    """Wall time of one call of ``fn`` and the device time of the kernels
-    it ran (profiled run)."""
+def busy(fn, wall_ms: float) -> dict:
+    """Device time of the kernels of one call of ``fn`` (profiled run),
+    and its share of ``wall_ms``, the same call's unprofiled wall time
+    (the profiler stretches the wall time of the run it traces)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    check(busy_ms > 0, "the profiler recorded no device time")
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
             "busy_share": busy_ms / wall_ms}
 
 
 def timed(fn) -> dict:
-    """``ms``: device time per call (profiler, else CUDA events);
-    ``call_ms``: CUDA-event time per call over back-to-back calls, which
-    includes the host's launch overhead when the host is slower."""
-    call = time_ms(fn)
-    dev = device_ms(fn)
-    return {"ms": dev if dev is not None else call, "call_ms": call,
-            "ms_source": "profiler" if dev is not None else "events"}
+    """``ms``: device time per call (profiler); ``call_ms``: CUDA-event
+    time per call over back-to-back calls, which includes the host's
+    launch overhead when the host is slower than the device."""
+    return {"ms": device_ms(fn), "call_ms": time_ms(fn)}
 
 
 def work(name: str, rows: int, length: int, esize: int, guidance: float):
@@ -260,6 +261,22 @@ def main() -> int:
                       f"{arm.label}: non-finite quality {m}")
     print(f"fused vs unfused compressed arms: max rel diff {boundary_gap:.3e}")
 
+    # a lone request re-run (one row) and a pair (two rows) against their
+    # rows of the 8-request run: equal to rounding, not bit for bit, since
+    # cuBLAS and cuDNN choose their kernels by batch size
+    lone = {}
+    for ex, arm in ((ex_raw, raw_arms[3]), (ex_raw, raw_arms[8]),
+                    (ex_fused, twins[2])):
+        full = ex.generate_bucketed(arm, seeds)
+        lone[arm.label] = {}
+        for what, subset in (("one_row", [5]), ("bucket_of_two", [5, 6])):
+            rerun = ex.generate_bucketed(arm, seeds, subset=subset)
+            ref = full[subset]
+            lone[arm.label][what] = float(np.abs(rerun - ref).max())
+            rel = float(np.linalg.norm(rerun - ref) / np.linalg.norm(ref))
+            check(rel <= RAW_RTOL, f"{arm.label}: {what} re-run rel {rel}")
+    print(f"lone request vs its row of 8, max |diff|: {json.dumps(lone)}")
+
     # ---- 4. card against CPU on the same host-drawn noise ------------------
     cpu_fams = load_families(CKPTS, device="cpu")
     worst = {}
@@ -289,10 +306,17 @@ def main() -> int:
             torch.cuda.synchronize()
             arm_ms[arm.label] = (time.perf_counter() - t0) * 1e3 / len(seeds)
     print(f"ms per request (8-request bucket): {json.dumps(arm_ms)}")
-    shares = {arm.label: busy(lambda: ex.generate_bucketed(arm, seeds))
+    shares = {arm.label: busy(lambda: ex.generate_bucketed(arm, seeds),
+                              arm_ms[arm.label] * len(seeds))
               for ex, arm in ((ex_raw, raw_arms[3]), (ex_raw, raw_arms[8]),
                               (ex_fused, twins[2]))}
-    print(f"device busy share of one 8-request run: {json.dumps(shares)}")
+    print(f"device busy share of one 8-request run (profiled device time "
+          f"over the unprofiled wall time above): {json.dumps(shares)}")
+
+    # the floor every launch pays: a kernel that does nothing, launched
+    # by the same path as the four
+    empty = timed(lambda: build.launch_empty(dev))
+    print(f"empty kernel: {json.dumps(empty)}")
 
     def kernel_rows(rows, length):
         x, ec, eu = (torch.randn(rows, length, generator=gen, device=dev)
@@ -323,12 +347,15 @@ def main() -> int:
         for name, (kern, plain, lib) in calls.items():
             b_ms, b_by = bound(name, rows, length, 4, 1.0)
             k, p = timed(kern), timed(plain)
+            # the least device time of one launch: the byte or operation
+            # bound, or the empty kernel's time where that is larger
+            floor_ms, floor_by = max((b_ms, b_by), (empty["ms"], "launch"))
             out[name] = {
                 "ms": k["ms"], "plain_ms": p["ms"],
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": timed(lib)["ms"] if lib is not None else None,
                 "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
-                "ms_source": k["ms_source"],
+                "floor_ms": floor_ms, "floor_by": floor_by,
             }
         return out
 

@@ -33,12 +33,23 @@ __global__ void dequant_kernel(const int8_t* __restrict__ q, const float* __rest
   }
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace quant_impl
 
 extern "C" {
 
 const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Launches a kernel that does nothing: the floor that every launch through
+// this library pays (launch latency), for measurement.
+int repro_empty(int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  quant_impl::empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
 }
 
 // dtype: 0 = fp32, 1 = bf16

@@ -140,8 +140,16 @@ def library() -> ctypes.CDLL:
                 fn.restype = _I
             lib.repro_cuda_error_string.argtypes = (_I,)
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            lib.repro_empty.argtypes = (_I, _P)
+            lib.repro_empty.restype = _I
             _lib = lib
     return _lib
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        msg = library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
 
 
 def launch(name: str, device: torch.device, *args) -> None:
@@ -149,11 +157,16 @@ def launch(name: str, device: torch.device, *args) -> None:
     launch was refused, else count it."""
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, f"repro_{name}")(device.index or 0, *args, stream)
-    if err:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
+    _raise_on(getattr(lib, f"repro_{name}")(device.index or 0, *args, stream),
+              name)
     LAUNCHES[name] += 1
+
+
+def launch_empty(device: torch.device) -> None:
+    """Launch a kernel that does nothing, by the same path as the kernels
+    but uncounted: the launch-latency floor, for measurement."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _raise_on(library().repro_empty(device.index or 0, stream), "empty")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

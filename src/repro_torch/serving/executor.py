@@ -62,7 +62,10 @@ class Executor:
     contract: :meth:`generate_bucketed` seeds each sample from its own
     seed, so the same (seed, arm) gives the same output whatever bucket
     it lands in — what partial-batch re-execution (``subset=``) relies
-    on."""
+    on.  On the CPU the rows agree bit for bit.  On CUDA they agree to
+    rounding only: cuBLAS and cuDNN choose their kernels by batch size, so
+    a request run alone or in two rows differs from its row of an
+    8-request run by up to ~2e-6 (``chip_smoke.py`` phase 3)."""
 
     def __init__(self, families: Dict[str, object],
                  arms: Optional[Sequence[Arm]] = None,
@@ -215,10 +218,10 @@ class Executor:
     def generate_bucketed(self, arm: Arm, seeds: np.ndarray,
                           buckets=DEFAULT_BUCKETS, subset=None) -> np.ndarray:
         """Pad-to-bucket batched generation with per-sample noise: padded
-        slots re-run the last seed and are sliced off (a bucket of one runs
-        two rows).  ``subset`` —
+        slots re-run the last seed and are sliced off.  ``subset`` —
         indices into ``seeds`` — re-runs only those samples (the straggler
-        re-issue path); its rows equal the full call's rows."""
+        re-issue path); its rows equal the full call's rows (to rounding on
+        CUDA; see :class:`Executor`)."""
         seeds = np.asarray(seeds)
         if subset is not None:
             idx = np.asarray(subset, dtype=np.intp)
@@ -226,10 +229,12 @@ class Executor:
                 raise ValueError("empty subset: nothing to re-execute")
             seeds = seeds[idx]
         n = len(seeds)
-        # a lone sample runs beside a copy of itself: PyTorch's matrix
-        # product takes another summation order for a single row, which
-        # would make a re-run of one straggler differ in the last bits
-        b = max(bucketize(n, tuple(sorted(buckets))), 2)
+        b = bucketize(n, tuple(sorted(buckets)))
+        if b == 1 and self.device.type == "cpu":
+            # PyTorch's CPU matrix product takes another summation order
+            # for a single row; beside a copy of itself a lone sample keeps
+            # its row's bits.  (On CUDA no bucket size keeps them.)
+            b = 2
         if b > n:
             seeds = np.concatenate([seeds, np.repeat(seeds[-1:], b - n)])
         _, _, cond = synth.batch(seeds, arm.family or "XL")
