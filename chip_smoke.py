@@ -4,28 +4,57 @@ card.
 
   python3 chip_smoke.py
 
-Phases, each failing the run (non-zero exit, no result line) on any
-mismatch:
+It drives the port's two main paths — the diffusion relay executor and
+the LM prefix relay at ``qwen3-4b`` width — and holds every CUDA kernel
+against its plain PyTorch version.  Phases, each failing the run
+(non-zero exit, no result line) on any mismatch:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
-2. each of the four CUDA kernels against its plain PyTorch version on the
-   card — main-path shapes (R = 4·{1, 8} wire rows of L = 64), ragged
+2. each of the four boundary kernels against its plain PyTorch version on
+   the card — main-path shapes (R = 4·{1, 8} wire rows of L = 64), ragged
    shapes, one HBM-sized shape (R = 8192, L = 4096); fp32 and bf16; ddim
    and rf; guidance 1.0 and 3.5 — payloads, scales and stepped rows
    exact;
-3. the main path: the trained families on the card, ``generate_bucketed``
-   for 8 requests on each of the 11 raw arms and of the 10 compressed
-   twins (fused and unfused boundaries, which must agree), then
-   ``quality_table``; every kernel must have launched on this path; a
-   request re-run alone and in a pair agrees with its row of 8 to 1e-4;
-4. card against CPU: 2 requests per family on the same host-drawn noise;
-5. times: per-arm ms per request (host clock around a synchronized
-   run) and the device's busy share of one run; the launch floor (an
-   empty kernel); per kernel, the device time per call (profiler) and the
-   time per back-to-back call (CUDA events) beside the plain version's,
-   the library call's, the byte/operation bound and the floor (that bound
-   or the empty kernel's time, whichever is larger).
+3. the diffusion main path: the trained families on the card,
+   ``generate_bucketed`` for 8 requests on each of the 11 raw arms and of
+   the 10 compressed twins (fused and unfused boundaries, which must
+   agree), then ``quality_table``; every boundary kernel must have
+   launched on this path; a request re-run alone and in a pair agrees
+   with its row of 8 to 1e-4;
+4. diffusion card against CPU: 2 requests per family on the same
+   host-drawn noise;
+5. diffusion times: per-arm ms per request (host clock around a
+   synchronized run) and the device's busy share of one run; the launch
+   floor (an empty kernel); per kernel, the device time per call
+   (profiler) and the time per back-to-back call (CUDA events) beside the
+   plain version's, the library call's, the byte/operation bound and the
+   floor (that bound or the empty kernel's time, whichever is larger);
+6. flash attention against its plain version on the card, within
+   ``tests/test_kernels.py``'s TOL (2e-5 fp32, 4e-2 bf16): the five shapes
+   of ``tests/test_kernels.py`` in fp32 and bf16, the decode shape (q
+   (8, 32, 1, 128) over a cache of 128, kv_len 1, 37, 128) and
+   S = T = 4096 causal, bf16;
+7. flash attention's times per shape (decode, scoring, 4096): the
+   kernel's, the plain version's and SDPA's beside the bound;
+8. the LM main path: ``qwen3-4b`` (36 layers, bf16) as the large model and
+   its 9-layer cut as the small one, random weights from seeded
+   generators; 8 prompts of 64 tokens decode 64 new tokens large-only,
+   relayed at s = 16, 32, 48, and small-only, then ``sequence_logprob``
+   of each under the large model; flash attention must launch in both the
+   decode calls and the scoring forward, as many times as there are layer
+   calls, and the handoff bytes must follow the reference's formula;
+9. LM card against CPU on the same weights: full width, 2 layers, fp32,
+   2 prompts of 16 tokens: teacher-forced logits and ``sequence_logprob``
+   within 1e-5 relative, and an 8-token relay's tokens equal up to the
+   first step whose top-2 margin does not exceed ten times the logit
+   difference (a tie, reported as one);
+10. LM times: ms per new token of each model and ms per relay request,
+    and the busy share of one relay run.
+
+Every profiled time comes from a session whose kernel records are
+complete (see :func:`profiled`); the profiled phases run before the LM
+path's long unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -40,15 +69,25 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 CKPTS = REPO / "results" / "ckpts"
-# H100 SXM (NVIDIA data sheet): HBM3 rate and fp32 rate outside the
-# tensor cores, at the full 700 W power limit
+# H100 SXM (NVIDIA data sheet): HBM3 rate, fp32 rate outside the tensor
+# cores and dense bf16 tensor-core rate, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 MAIN_ROWS, WIRE_LEN = 4 * 8, 64  # 8 requests x 4 latent channels, 8x8
 RAW_RTOL, COMPRESSED_RTOL = 1e-4, 1e-3
+# LM path: 8 prompts of 64 tokens, 64 new tokens, relays at s
+LM_BATCH, LM_PROMPT, LM_TOTAL, LM_SPLITS = 8, 64, 64, (16, 32, 48)
+LM_SMALL_LAYERS = 9
+LM_RTOL = 1e-5  # card against CPU, fp32 logits (norm-wise relative)
+MARGIN_FACTOR = 10.0  # a greedy step is a tie below 10x the logit gap
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}  # test_kernels.py
+DIFFUSION_KERNELS = ("fused_cfg_step_quant", "fused_cfg_step_dequant",
+                     "quant_int8", "dequant_int8")
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "fused_cfg_step_quant": ("src/repro_torch/csrc/fused_sampler.cu",
@@ -59,6 +98,8 @@ KERNELS = {
                    "src/repro/kernels/quant/kernel.py:36"),
     "dequant_int8": ("src/repro_torch/csrc/quant.cu",
                      "src/repro/kernels/quant/kernel.py:60"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:78"),
 }
 
 
@@ -77,7 +118,7 @@ def card_line() -> str:
 
 def time_ms(fn, iters: int = 200) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(10):
+    for _ in range(min(10, iters)):
         fn()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
@@ -89,43 +130,83 @@ def time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def profiled(run, calls: int = 1, counted: str = None, attempts: int = 3):
+    """Device time (µs) of the kernels ``run()`` launches, from the
+    profiler (CUPTI), and the profiler's averages by kernel.
+
+    The session must hold every kernel record: ``run`` makes ``calls``
+    calls that launch the same kernels, so the number recorded must be a
+    multiple of ``calls``; with ``counted`` (a kernel of
+    ``build.LAUNCHES``), the records of that kernel must number its
+    launches during ``run``.  On the H100 machine CUPTI has dropped
+    records (all of them, or some at a session's end) in a process that
+    had already run many profiled or unprofiled launches; such a session
+    is repeated, up to ``attempts`` times in all, and then this raises."""
+    from repro_torch.kernels import build
+
+    symbol = {"flash_attention": "flash_fwd_kernel"}.get(counted)
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        before = build.LAUNCHES[counted] if counted else 0
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        us = sum(e.self_device_time_total for e in averages)
+        n = sum(e.count for e in averages if e.self_device_time_total > 0)
+        complete = us > 0 and n % calls == 0
+        if counted:
+            launched = build.LAUNCHES[counted] - before
+            recorded = sum(e.count for e in averages if symbol in e.key)
+            complete = complete and recorded == launched
+        if complete:
+            return us, averages
+        print(f"profiler: {n} kernels, {us} us recorded for {calls} calls "
+              f"(session {attempt} of {attempts})", file=sys.stderr)
+        time.sleep(1.0)
+    raise RuntimeError("check failed: the profiler lost device records")
+
+
 def device_ms(fn, iters: int = 50) -> float:
     """Device time of one call of ``fn``: the durations of the kernels it
-    launched, from the profiler (CUPTI), over ``iters`` calls.  Raises
-    when the profiler records no device activity."""
-    for _ in range(5):
+    launched, from the profiler, over ``iters`` calls."""
+    for _ in range(min(5, iters)):
         fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / iters
+    return profiled(run, calls=iters)[0] / 1e3 / iters
 
 
-def busy(fn, wall_ms: float) -> dict:
+def busy(fn, wall_ms: float, counted: str = None) -> dict:
     """Device time of the kernels of one call of ``fn`` (profiled run),
     and its share of ``wall_ms``, the same call's unprofiled wall time
-    (the profiler stretches the wall time of the run it traces)."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-    check(busy_ms > 0, "the profiler recorded no device time")
-    return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
-            "busy_share": busy_ms / wall_ms}
+    (the profiler stretches the wall time of the run it traces); and the
+    five kernels with the most device time in that run."""
+    us, averages = profiled(fn, counted=counted)
+    top = sorted(averages, key=lambda e: -e.self_device_time_total)[:5]
+    return {"device_busy_ms": us / 1e3, "wall_ms": wall_ms,
+            "busy_share": us / 1e3 / wall_ms,
+            "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                               for e in top}}
 
 
-def timed(fn) -> dict:
+def timed(fn, iters: int = 200) -> dict:
     """``ms``: device time per call (profiler); ``call_ms``: CUDA-event
     time per call over back-to-back calls, which includes the host's
     launch overhead when the host is slower than the device."""
-    return {"ms": device_ms(fn), "call_ms": time_ms(fn)}
+    return {"ms": device_ms(fn, min(50, iters)), "call_ms": time_ms(fn, iters)}
+
+
+def host_timed(fn):
+    """``(fn(), host ms)`` around a synchronized call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def work(name: str, rows: int, length: int, esize: int, guidance: float):
@@ -150,6 +231,271 @@ def bound(name, rows, length, esize, guidance):
     nbytes, ops = work(name, rows, length, esize, guidance)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_work(b, h, kv, s, t, d, causal, window, kv_len, esize):
+    """(bytes, operations) one flash-attention call needs at these inputs:
+    q read and the output written once, each key and value that some
+    query attends read once; 4·D operations (two multiply-adds) per
+    attended (query, key) pair."""
+    q_pos, k_pos = np.arange(s)[:, None], np.arange(t)[None, :]
+    mask = k_pos < kv_len
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    keys = int(mask.any(axis=0).sum())
+    nbytes = esize * (2 * b * h * s * d + 2 * b * kv * keys * d)
+    return nbytes, 4 * d * b * h * int(mask.sum())
+
+
+def flash_bound(work, dtype):
+    nbytes, ops = work
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_inputs(gen, dev, b, h, kv, s, t, d, dtype):
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, h, s, d), (b, kv, t, d), (b, kv, t, d))]
+
+
+def check_flash(gen, dev) -> float:
+    """Phase 6: the kernel against its plain version; returns max |err|."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    cases = [(b, h, kv, s, t, d, c, w, cap, None, dt)
+             for (b, h, kv, s, t, d, c, w, cap) in (
+                 (2, 4, 2, 64, 64, 32, True, None, None),
+                 (1, 4, 4, 40, 40, 16, True, None, 50.0),
+                 (2, 8, 2, 32, 96, 32, False, None, None),
+                 (1, 4, 1, 64, 64, 32, True, 16, None),
+                 (1, 2, 2, 16, 128, 64, True, None, None))
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(8, 32, 8, 1, 128, 128, False, None, None, kl, torch.bfloat16)
+              for kl in (1, 37, 128)]
+    cases.append((1, 32, 8, 4096, 4096, 128, True, None, None, None,
+                  torch.bfloat16))
+    worst = 0.0
+    for b, h, kv, s, t, d, causal, window, cap, kv_len, dtype in cases:
+        q, k, v = flash_inputs(gen, dev, b, h, kv, s, t, d, dtype)
+        kw = dict(causal=causal, window=window, softcap=cap, kv_len=kv_len)
+        out = flash_attention(q, k, v, **kw)
+        ref = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out.double() - ref.double()).abs().max())
+        worst = max(worst, err)
+        tol = FLASH_TOL[dtype]
+        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        check(ok and out.dtype == dtype and torch.isfinite(out).all(),
+              f"flash_attention {(b, h, kv, s, t, d, causal, window, cap, kv_len)} "
+              f"{dtype}: max |err| {err} over {tol}")
+    print(f"flash_attention equals its plain version within TOL: "
+          f"{len(cases)} cases, max |err| {worst:.3e}")
+    return worst
+
+
+def lm_main_path(dev):
+    """Phase 8: returns the models, the prompts, the path's launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.lm_relay import (greedy_decode, relay_decode,
+                                              sequence_logprob)
+    from repro_torch.training.data import DataConfig, TokenPipeline
+
+    cfg_l = configs.get_config("qwen3-4b")
+    cfg_s = cfg_l.replace(n_layers=LM_SMALL_LAYERS)
+    t0 = time.perf_counter()
+    large = tr.init_model(cfg_l, torch.Generator(device=dev).manual_seed(1), dev)
+    small = tr.init_model(cfg_s, torch.Generator(device=dev).manual_seed(2), dev)
+    torch.cuda.synchronize()
+    print(f"LM models: large {cfg_l.n_layers} layers "
+          f"{cm.count_params(large) / 1e9:.3f} B params, small "
+          f"{cfg_s.n_layers} layers {cm.count_params(small) / 1e9:.3f} B, "
+          f"{cfg_l.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
+    prompt = TokenPipeline(DataConfig(
+        vocab_size=cfg_l.vocab_size, seq_len=LM_PROMPT,
+        global_batch=LM_BATCH)).batch(999)[0]
+
+    build.reset_launches()
+    runs = {}
+    seq, ms = host_timed(lambda: greedy_decode(large, cfg_l, prompt, LM_TOTAL))
+    runs["large-only"] = (LM_TOTAL, 0, seq, ms)
+    for s in LM_SPLITS:
+        (seq, info), ms = host_timed(lambda: relay_decode(
+            large, cfg_l, small, cfg_s, prompt, s, LM_TOTAL))
+        want = LM_BATCH * (LM_PROMPT + s) * 4  # 4 bytes a token
+        check(info["transfer_bytes"] == want and info["edge_tokens"] == s
+              and info["node_tokens"] == {"n00": s, "n01": LM_TOTAL - s},
+              f"relay s={s}: info {info}, transfer bytes want {want}")
+        runs[f"relay s={s}"] = (s, LM_TOTAL - s, seq, ms)
+    seq, ms = host_timed(lambda: greedy_decode(small, cfg_s, prompt, LM_TOTAL))
+    runs["small-only"] = (0, LM_TOTAL, seq, ms)
+    decode = build.LAUNCHES["flash_attention"]
+    # one launch per layer per decode step (prompt + new tokens)
+    steps = LM_PROMPT + LM_TOTAL
+    want = (cfg_l.n_layers * (steps + sum(LM_PROMPT + s for s in LM_SPLITS))
+            + cfg_s.n_layers * steps * (1 + len(LM_SPLITS)))
+    check(decode == want, f"flash launches in decode {decode}, want {want}")
+
+    logp = {name: sequence_logprob(large, cfg_l, r[2])
+            for name, r in runs.items()}
+    scoring = build.LAUNCHES["flash_attention"] - decode
+    check(scoring == cfg_l.n_layers * len(runs),
+          f"flash launches in scoring {scoring}")
+    launches = dict(build.LAUNCHES)
+
+    ref = runs["large-only"][2]
+    prompt_t = torch.from_numpy(prompt).to(dev)
+    for name, (e, _, seq, _) in runs.items():
+        check(seq.shape == (LM_BATCH, LM_PROMPT + LM_TOTAL)
+              and seq.dtype == prompt_t.dtype
+              and bool(((seq >= 0) & (seq < cfg_l.vocab_size)).all())
+              and torch.equal(seq[:, :LM_PROMPT], prompt_t),
+              f"{name}: sequence {tuple(seq.shape)} out of range or prompt lost")
+        check(np.isfinite(logp[name]), f"{name}: logp {logp[name]}")
+        # the relay's large segment is the large-only decode's prefix
+        check(torch.equal(seq[:, :LM_PROMPT + e], ref[:, :LM_PROMPT + e]),
+              f"{name}: large-model prefix differs from large-only")
+    print(f"LM main path launches: decode {decode}, scoring {scoring}")
+    print(f"{'config':12s} {'edge':>5s} {'dev':>5s} {'logp(large)':>12s} "
+          f"{'wall ms':>9s}")
+    for name, (e, d, _, ms) in runs.items():
+        print(f"{name:12s} {e:5d} {d:5d} {logp[name]:12.4f} {ms:9.1f}")
+    return large, small, cfg_l, cfg_s, prompt, launches
+
+
+def lm_card_vs_cpu(dev, prompt) -> dict:
+    """Phase 9: full width, 2 layers, fp32; the same weights on both."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.lm_relay import relay_decode, sequence_logprob
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products
+    cfg = configs.get_config("qwen3-4b").replace(n_layers=2, dtype="float32")
+    models = {role: tr.init_model(cfg, torch.Generator(device=dev)
+                                  .manual_seed(seed), dev)
+              for role, seed in (("large", 3), ("small", 4))}
+    p2, s, total = prompt[:2, :16], 4, 8
+    places = {"card": dev, "cpu": torch.device("cpu")}
+    out = {}
+    for name, where in places.items():
+        for m in models.values():
+            m.to(where)
+        seq, info = relay_decode(models["large"], cfg, models["small"], cfg,
+                                 p2, s, total, device=where)
+        out[name] = {"seq": seq.cpu(), "info": info}
+    # logits of both devices on the card's tokens
+    seq = out["card"]["seq"]
+    for name in ("cpu", "card"):
+        where = places[name]
+        for m in models.values():
+            m.to(where)
+        out[name]["logits"] = {
+            role: tr.model_fwd(m, cfg, {"tokens": seq.to(where).long()})
+            .float().cpu() for role, m in models.items()}
+        out[name]["logp"] = sequence_logprob(models["large"], cfg, seq,
+                                             device=where)
+    card, cpu = out["card"], out["cpu"]
+    rel = {role: float(torch.linalg.norm(card["logits"][role]
+                                         - cpu["logits"][role])
+                       / torch.linalg.norm(cpu["logits"][role]))
+           for role in models}
+    check(max(rel.values()) <= LM_RTOL, f"LM card vs CPU logits rel {rel}")
+    lp_rel = abs(card["logp"] - cpu["logp"]) / abs(cpu["logp"])
+    check(lp_rel <= LM_RTOL, f"LM card vs CPU logp rel {lp_rel}")
+    check(card["info"] == cpu["info"], "LM card vs CPU relay info differs")
+    # tokens, up to the first tie: position j was chosen by the logits at
+    # j - 1 of the model whose segment holds it
+    p = p2.shape[1]
+    tie, margins = None, []
+    for j in range(p, p + total):
+        role = "large" if j < p + s else "small"
+        lc, lh = (x["logits"][role][:, j - 1, :cfg.vocab_size]
+                  for x in (card, cpu))
+        top2 = torch.topk(lc, 2).values
+        margin = top2[:, 0] - top2[:, 1]
+        gap = (lc - lh).abs().amax(-1)
+        margins.append(float(margin.min()))
+        if bool((margin <= MARGIN_FACTOR * gap).any()):
+            tie = j
+            break
+    upto = p + total if tie is None else tie
+    check(torch.equal(card["seq"][:, :upto], cpu["seq"][:, :upto]),
+          f"LM card vs CPU tokens differ before position {upto}")
+    result = {"logits_rel": rel, "logp_rel": lp_rel,
+              "tokens_equal_upto": upto, "tie_at": tie,
+              "min_margin": min(margins)}
+    print(f"LM card vs CPU (2 layers, fp32): {json.dumps(result)}")
+    del models
+    return result
+
+
+def flash_times(dev, floor_ms) -> dict:
+    """Phase 7: flash attention's times per shape, bf16."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    steps = LM_PROMPT + LM_TOTAL
+    shapes = {
+        # (b, h, kv, s, t, d, causal, kv_len, iters)
+        "decode": (LM_BATCH, 32, 8, 1, steps, 128, False, steps, 200),
+        "scoring": (LM_BATCH, 32, 8, steps, steps, 128, True, None, 100),
+        "s4096": (1, 32, 8, 4096, 4096, 128, True, None, 10),
+    }
+    rows = {}
+    for name, (b, h, kv, s, t, d, causal, kv_len, iters) in shapes.items():
+        q, k, v = flash_inputs(gen, dev, b, h, kv, s, t, d, torch.bfloat16)
+        kw = dict(causal=causal, kv_len=kv_len)
+        kl = t if kv_len is None else kv_len
+        k_l, v_l = k[:, :, :kl], v[:, :, :kl]
+        kern = timed(lambda: flash_attention(q, k, v, **kw), iters)
+        plain = timed(lambda: flash_attention_ref(q, k, v, **kw), iters)
+        lib = timed(lambda: F.scaled_dot_product_attention(
+            q, k_l, v_l, is_causal=causal, enable_gqa=True), iters)
+        b_ms, b_by = flash_bound(flash_work(b, h, kv, s, t, d, causal, None,
+                                            kl, 2), torch.bfloat16)
+        f_ms, f_by = max((b_ms, b_by), (floor_ms, "launch"))
+        rows[name] = {"shape": [b, h, kv, s, t, d, causal, kl],
+                      "ms": kern["ms"], "call_ms": kern["call_ms"],
+                      "plain_ms": plain["ms"],
+                      "plain_call_ms": plain["call_ms"],
+                      "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "floor_ms": f_ms, "floor_by": f_by}
+    print(f"flash_attention times, bf16 (b, h, kv, s, t, d, causal, kv_len): "
+          f"{json.dumps(rows)}")
+    return rows
+
+
+def lm_times(large, small, cfg_l, cfg_s, prompt) -> dict:
+    """Phase 10: ms per new token, per relay request, and the busy share
+    of one relay run."""
+    from repro_torch.serving.lm_relay import greedy_decode, relay_decode
+
+    _, large_ms = host_timed(lambda: greedy_decode(large, cfg_l, prompt, LM_TOTAL))
+    _, small_ms = host_timed(lambda: greedy_decode(small, cfg_s, prompt, LM_TOTAL))
+    s = LM_SPLITS[len(LM_SPLITS) // 2]
+    relay = lambda: relay_decode(large, cfg_l, small, cfg_s, prompt,  # noqa: E731
+                                 s, LM_TOTAL)
+    _, relay_ms = host_timed(relay)
+    times = {
+        "large_ms_per_new_token": large_ms / LM_TOTAL,
+        "small_ms_per_new_token": small_ms / LM_TOTAL,
+        "large_ms_per_decode_step": large_ms / (LM_PROMPT + LM_TOTAL),
+        "small_ms_per_decode_step": small_ms / (LM_PROMPT + LM_TOTAL),
+        f"relay_s{s}_ms_per_request": relay_ms / LM_BATCH,
+        f"relay_s{s}_ms_per_batch": relay_ms,
+        f"busy_relay_s{s}": busy(relay, relay_ms, counted="flash_attention"),
+    }
+    print(f"LM times ({LM_BATCH} prompts of {LM_PROMPT}, {LM_TOTAL} new "
+          f"tokens): {json.dumps(times)}")
+    return times
 
 
 def main() -> int:
@@ -252,8 +598,8 @@ def main() -> int:
               ex_fused.quality_table(seeds, arms=twins)]
     launches = dict(build.LAUNCHES)
     print(f"main path launches: {json.dumps(launches)}")
-    check(all(launches[k] > 0 for k in KERNELS),
-          f"a kernel never launched on the main path: {launches}")
+    check(all(launches[k] > 0 for k in DIFFUSION_KERNELS),
+          f"a kernel never launched on the diffusion path: {launches}")
     for table, arms in zip(tables, (raw_arms, twins)):
         for arm in arms:
             for m in table[:, arm.idx]:
@@ -363,6 +709,18 @@ def main() -> int:
     hbm_times = kernel_rows(8192, 4096)
     print(f"kernel times at R=8192, L=4096 fp32 ddim g=1: "
           f"{json.dumps(hbm_times)}")
+
+    # ---- 6-10. flash attention and the LM path ------------------------------
+    max_err["flash_attention"] = check_flash(gen, dev)
+    flash_rows = flash_times(dev, empty["ms"])
+    large, small, cfg_l, cfg_s, prompt, lm_launches = lm_main_path(dev)
+    lm_card_vs_cpu(dev, prompt)
+    lm_times(large, small, cfg_l, cfg_s, prompt)
+    launches["flash_attention"] = lm_launches["flash_attention"]
+    # the row of the shape launched most on the LM path: decode
+    main_times["flash_attention"] = {
+        k: v for k, v in flash_rows["decode"].items() if k != "shape"}
+
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name], "max_abs_err": max_err[name],

@@ -1,0 +1,27 @@
+"""Architecture registry of the port: ``get_config(name)`` /
+``list_archs()``.  Holds the configurations whose layers the port runs;
+the others of ``repro/configs`` come with their slices (ROADMAP)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig,
+    LayerSpec,
+    make_reduced,
+)
+
+_MODULES = {
+    "qwen3-4b": "qwen3_4b",
+}
+
+
+def list_archs():
+    return sorted(_MODULES)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {list_archs()}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG

@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources in ``repro_torch/csrc/*.cu`` are compiled for ``sm_90a`` on
-first use: one ``nvcc -c`` per source, all started together, then one
-link into a shared library with a plain C interface, loaded with
-``ctypes``.  The library lands in ``<repo>/build/kernels/`` under a name
-keyed by a hash of the sources and flags, so a changed source rebuilds and
+first use: one ``nvcc -c`` per source (with its own flags from
+:data:`SOURCES`), all started together, then one link into a shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+lands in ``<repo>/build/kernels/`` under a name keyed by a hash of the
+sources and flags, so a changed source rebuilds and
 an unchanged one loads the cached library.  A failed build or launch
 raises; nothing falls back to the plain versions.
 
@@ -27,14 +28,21 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant.cu", "fused_sampler.cu")
+#: each source with its flags on top of NVCC_FLAGS.  The boundary kernels
+#: promise their plain versions' bits: those round after every operation,
+#: and one ulp in a stepped value can flip an int8 at a rounding tie, so
+#: no FMA contraction.  Flash attention promises a tolerance and keeps
+#: nvcc's default FMAs.
+SOURCES = {
+    "quant.cu": ("--fmad=false",),
+    "fused_sampler.cu": ("--fmad=false",),
+    "flash_attention.cu": (),
+}
 HEADERS = ("rowquant.cuh",)
-# IEEE division and square root (no fast math), and no FMA contraction:
-# the plain versions round after every operation, and one ulp in a
-# stepped value can flip an int8 at a rounding tie.
+# IEEE division and square root everywhere (no fast math)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -49,6 +57,10 @@ SIGNATURES = {
     "fused_cfg_step_quant": (_P, _P, _P, _I, _P, _F, _I, _P, _P, _LL, _I),
     # q, s, eps_c, eps_u, dtype, coeffs, guidance, mode, out, rows, len
     "fused_cfg_step_dequant": (_P, _P, _P, _P, _I, _P, _F, _I, _P, _LL, _I),
+    # q, k, v, o, dtype, B, H, KV, S, T, D, (b, h, s) element strides of
+    # q, k, v and o, causal, window, softcap, scale, kv_len
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        *(_LL,) * 12, _I, _I, _F, _F, _I),
 }
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -66,8 +78,9 @@ def reset_launches() -> None:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in (*SOURCES, *HEADERS):
         h.update(name.encode())
+        h.update(" ".join(SOURCES.get(name, ())).encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -101,10 +114,11 @@ def build() -> Path:
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
         procs = []
-        for src in SOURCES:
+        for src, flags in SOURCES.items():
             obj = tmp / (Path(src).stem + ".o")
             procs.append((src, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *flags, "-c", str(CSRC / src), "-o",
+                 str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )))
         log = []

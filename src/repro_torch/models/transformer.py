@@ -1,0 +1,203 @@
+"""LM transformer (port of ``repro/models/transformer.py``) for layers of
+GQA attention and a dense or no MLP: ``qwen3-4b`` and the other dense
+configurations.
+
+The reference stacks each super-block's parameters on a leading
+``n_repeats`` axis and scans over it; the port unrolls the super-blocks
+into one :class:`torch.nn.ModuleList` (:func:`layer_specs` gives each
+layer's spec: repeat ``r``, pattern slot ``j`` is layer
+``r * len(pattern) + j``, then the remainder), and its caches into one
+list.  Recurrent mixers, the MoE, MLA, cross-attention, encoders and the
+MTP head raise :class:`NotImplementedError` naming the ROADMAP slice that
+brings them.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+from repro_torch.models import mlp as mlp_mod
+
+
+def layer_specs(cfg: ArchConfig) -> Tuple[LayerSpec, ...]:
+    """The spec of every layer, in execution order."""
+    return tuple(cfg.pattern) * cfg.n_repeats + tuple(cfg.remainder)
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise :class:`NotImplementedError` for what the port cannot run yet."""
+    for spec in layer_specs(cfg):
+        if spec.mixer != "attn":
+            raise NotImplementedError(
+                f"mixer {spec.mixer!r} is not ported: ROADMAP queue 1, item "
+                f"10 (rglru: RecurrentGemma slice; mlstm/slstm: xLSTM slice)")
+        if spec.mlp == "moe":
+            raise NotImplementedError(
+                "the MoE MLP is not ported: ROADMAP queue 1, item 10 "
+                "(MoE/MLA slice)")
+        if spec.cross_attn:
+            raise NotImplementedError(
+                "cross-attention is not ported: ROADMAP queue 1, item 10 "
+                "(encoder and cross-attention slice)")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            "MLA is not ported: ROADMAP queue 1, item 10 (MoE/MLA slice)")
+    if cfg.encoder is not None or cfg.ctx_dim:
+        raise NotImplementedError(
+            "encoders and context projections are not ported: ROADMAP "
+            "queue 1, item 10 (encoder and cross-attention slice)")
+    if cfg.mtp:
+        raise NotImplementedError(
+            "the MTP head is not ported: ROADMAP queue 1, item 10 "
+            "(MoE/MLA slice)")
+
+
+# ---------------------------------------------------------------------------
+# single layer
+# ---------------------------------------------------------------------------
+
+
+class Layer(nn.Module):
+    """Pre-norm attention (and dense MLP) block."""
+
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec,
+                 generator: torch.Generator, device):
+        super().__init__()
+        dt = cm.dtype_of(cfg)
+        self.norm_mix = cm.param(torch.zeros(cfg.d_model, dtype=dt,
+                                             device=device))
+        self.attn = attn.init_gqa(cfg, generator, device)
+        if spec.mlp == "dense":
+            self.norm_mlp = cm.param(torch.zeros(cfg.d_model, dtype=dt,
+                                                 device=device))
+            self.mlp = mlp_mod.init_mlp(cfg, generator, device)
+
+
+def init_layer(cfg: ArchConfig, spec: LayerSpec, generator: torch.Generator,
+               device) -> Layer:
+    return Layer(cfg, spec, generator, device)
+
+
+def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                     max_len: int, *, device) -> dict:
+    return attn.init_gqa_cache(cfg, batch, max_len, window=spec.window,
+                               device=device)
+
+
+def layer_fwd(p: Layer, cfg: ArchConfig, spec: LayerSpec, h: torch.Tensor,
+              *, positions: torch.Tensor, cache: Optional[dict] = None,
+              cache_pos: Optional[int] = None):
+    """Returns ``(h, new_cache)``."""
+    hin = cm.rms_norm(h, p.norm_mix, cfg.norm_eps)
+    out, c2 = attn.gqa_fwd(p.attn, cfg, hin, positions, window=spec.window,
+                           cache=cache, cache_pos=cache_pos)
+    h = h + out
+    if spec.mlp == "dense":
+        h = h + mlp_mod.mlp_fwd(p.mlp, cfg,
+                                cm.rms_norm(h, p.norm_mlp, cfg.norm_eps))
+    return h, c2
+
+
+# ---------------------------------------------------------------------------
+# LM (decoder stack + embeddings)
+# ---------------------------------------------------------------------------
+
+
+class LM(nn.Module):
+    """Embedding (over the padded vocabulary), the layers, the final norm
+    and, when the embeddings are not tied, the LM head."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        check_supported(cfg)
+        dt = cm.dtype_of(cfg)
+        g = generator
+        self.embed = cm.param(
+            cm.embed_init(g, cfg.padded_vocab, cfg.d_model, dt, device))
+        self.layers = nn.ModuleList(
+            init_layer(cfg, spec, g, device) for spec in layer_specs(cfg))
+        self.final_norm = cm.param(torch.zeros(cfg.d_model, dtype=dt,
+                                               device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = cm.param(
+                cm.dense_init(g, cfg.d_model, (cfg.padded_vocab,), dt, device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_model(cfg: ArchConfig, generator: torch.Generator,
+               device=None) -> LM:
+    """A model with weights drawn from ``generator`` (which must live on
+    ``device``) with the reference's distributions: truncated normal on ±2
+    over √fan_in, embeddings N(0, 0.02²), norms zero.  The device is CUDA
+    unless the caller names another."""
+    return LM(cfg, generator, resolve_device(device))
+
+
+def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+                  device) -> dict:
+    """One {"k", "v"} cache per layer, under ``"layers"``."""
+    return {"layers": [init_layer_cache(cfg, spec, batch, max_len,
+                                        device=device)
+                       for spec in layer_specs(cfg)]}
+
+
+def embed_scale(cfg: ArchConfig) -> torch.Tensor:
+    """√d_model rounded to the model's dtype, as the reference's
+    ``jnp.asarray(jnp.sqrt(d_model), dtype)``: 50.5 in bf16 at d = 2560."""
+    return torch.sqrt(torch.tensor(float(cfg.d_model))).to(cm.dtype_of(cfg))
+
+
+def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
+           cache: Optional[dict] = None, cache_pos: Optional[int] = None):
+    """Full-sequence forward (``cache=None``) or cached decode step.
+    Returns ``(logits over the padded vocabulary, new_cache)``."""
+    h = model.embed[tokens] * float(embed_scale(cfg))  # exact as a scalar
+    b, s = h.shape[:2]
+    offset = 0 if cache is None else cache_pos
+    positions = (offset + torch.arange(s, device=h.device))[None, :].expand(b, s)
+
+    new_layers = []
+    for i, (p, spec) in enumerate(zip(model.layers, layer_specs(cfg))):
+        c_in = cache["layers"][i] if cache is not None else None
+        h, c2 = layer_fwd(p, cfg, spec, h, positions=positions, cache=c_in,
+                          cache_pos=cache_pos)
+        new_layers.append(c2)
+    new_cache = {"layers": new_layers} if cache is not None else None
+
+    h = cm.rms_norm(h, model.final_norm, cfg.norm_eps)
+    head = model.embed.t() if cfg.tie_embeddings else model.lm_head
+    logits = h @ head
+    if cfg.logit_softcap:
+        logits = cm.softcap(logits.float(), cfg.logit_softcap)
+    return logits, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Top-level model: forward / decode
+# ---------------------------------------------------------------------------
+
+
+def model_fwd(model: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Prefill forward of ``batch["tokens"]``: the logits."""
+    return lm_fwd(model, cfg, batch["tokens"])[0]
+
+
+def init_model_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+                     device) -> dict:
+    return init_lm_cache(cfg, batch, max_len, device=device)
+
+
+def decode_step(model: LM, cfg: ArchConfig, cache: dict, token: torch.Tensor,
+                cache_pos: int):
+    """One-token decode.  token: (B, 1) int.  Returns ``(logits,
+    new_cache)``; the cache is updated in place."""
+    return lm_fwd(model, cfg, token, cache=cache, cache_pos=cache_pos)

@@ -106,3 +106,34 @@ def params_from_jax(flat: Dict[str, np.ndarray], cfg) -> Dict[str, torch.Tensor]
             t = t.permute(3, 2, 0, 1).contiguous()
         out[key.replace("/", ".")] = t
     return out
+
+
+def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
+    """State dict of the port's LM (``models/transformer.py::LM``) for the
+    reference's parameter tree ``params_np`` (numpy leaves, as
+    ``jax.tree.map(np.asarray, params)`` gives).  The super-block stacks
+    are unstacked: leaf ``params["lm"]["blocks"][j][...][r]`` becomes layer
+    ``r * len(pattern) + j``, the remainder follows.  Weights keep the
+    einsum layouts (``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo``
+    (H, hd, d), ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d)), in fp32;
+    ``load_state_dict`` casts them to the model's dtype."""
+    lm = params_np["lm"]
+    n_pat = len(cfg.pattern)
+    out = {"embed": lm["embed"], "final_norm": lm["final_norm"]}
+    if "lm_head" in lm:
+        out["lm_head"] = lm["lm_head"]
+
+    def put(prefix: str, tree, index=None) -> None:
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                put(f"{prefix}.{key}", val, index)
+            else:
+                out[f"{prefix}.{key}"] = val if index is None else val[index]
+
+    for j, block in enumerate(lm["blocks"]):
+        for r in range(cfg.n_repeats):
+            put(f"layers.{r * n_pat + j}", block, r)
+    for i, layer in enumerate(lm.get("rem", ())):
+        put(f"layers.{cfg.n_repeats * n_pat + i}", layer)
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32))
+            for k, v in out.items()}

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, bit for bit: payload ints, scales and stepped rows.  Imports no JAX,
+card: the boundary and quant kernels bit for bit (payload ints, scales
+and stepped rows), flash attention within ``tests/test_kernels.py``'s
+``TOL`` (2e-5 fp32, 4e-2 bf16).  Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
@@ -11,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.fused_sampler.ops import (fused_cfg_step_dequant,
                                                    fused_cfg_step_quant)
 from repro_torch.kernels.fused_sampler.ref import (fused_cfg_step_dequant_ref,
@@ -85,3 +89,53 @@ def test_wrappers_refuse_bad_operands(cuda_device):
         fused_cfg_step_quant(x, x, x, torch.zeros(2))
     with pytest.raises(ValueError, match="shape"):
         fused_cfg_step_quant(x, x, x[:2], torch.zeros(2, device=cuda_device))
+
+
+FLASH_TOL = {"f32": 2e-5, "bf16": 4e-2}
+FLASH_CASES = [
+    # tests/test_kernels.py:52-58: (b, h, kv, s, t, d, causal, window, cap)
+    (2, 4, 2, 64, 64, 32, True, None, None, None),
+    (1, 4, 4, 40, 40, 16, True, None, 50.0, None),
+    (2, 8, 2, 32, 96, 32, False, None, None, None),
+    (1, 4, 1, 64, 64, 32, True, 16, None, None),
+    (1, 2, 2, 16, 128, 64, True, None, None, None),
+    # qwen3-4b decode at cache_pos 36 over a cache of 128, and scoring
+    (8, 32, 8, 1, 128, 128, False, None, None, 37),
+    (2, 32, 8, 70, 70, 128, True, None, None, None),
+    # head dim 256 with everything on
+    (1, 4, 2, 33, 200, 256, True, 24, 30.0, 150),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap,kv_len", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda_device, b, h, kv, s, t, d, causal,
+                                       window, cap, kv_len, dtype):
+    rng = np.random.default_rng(s + t)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(DTYPES[dtype]).to(cuda_device)
+               for shape in ((b, h, s, d), (b, kv, t, d), (b, kv, t, d)))
+    kw = dict(causal=causal, window=window, softcap=cap, kv_len=kv_len)
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=FLASH_TOL[dtype],
+                               rtol=FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_the_models_strided_layout(cuda_device):
+    """(B, S, H, D) tensors seen as (B, H, S, D) go in without a copy; the
+    output is a view of a (B, S, H, D) buffer."""
+    rng = np.random.default_rng(1)
+    qm, km, vm = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                  .to(cuda_device) for shape in ((2, 50, 8, 64),
+                                                 (2, 50, 2, 64), (2, 50, 2, 64)))
+    out = flash_attention(qm.transpose(1, 2), km.transpose(1, 2),
+                          vm.transpose(1, 2))
+    ref = flash_attention_ref(qm.transpose(1, 2), km.transpose(1, 2),
+                              vm.transpose(1, 2))
+    assert out.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)

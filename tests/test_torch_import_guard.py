@@ -1,6 +1,7 @@
 """The port stands alone: every ``repro_torch`` module imports, and a toy
-relay runs on the CPU, in a process where ``jax`` and the reference
-package ``repro`` cannot be imported; no port source imports either."""
+diffusion relay and a reduced LM relay run on the CPU, in a process where
+``jax`` and the reference package ``repro`` cannot be imported; no port
+source imports either."""
 from __future__ import annotations
 
 import os
@@ -39,6 +40,24 @@ for fam in ("XL", "F3"):
                                     fused_boundary=fused)
         assert out.shape == x.shape and torch.isfinite(out).all()
         assert info["transfer_bytes"] == 2 * 4 * 64 + 2 * 4 * 4
+
+from repro_torch import configs
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import transformer as tr
+from repro_torch.serving.lm_relay import relay_decode, sequence_logprob
+from repro_torch.training.data import DataConfig, TokenPipeline
+
+cfg = configs.make_reduced(configs.get_config("qwen3-4b"))
+large, small = (tr.init_model(cfg, torch.Generator().manual_seed(k), "cpu")
+                for k in (0, 1))
+prompt = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=3,
+                                  global_batch=2)).batch(0)[0]
+seq, info = relay_decode(large, cfg, small, cfg, prompt, 2, 4, device="cpu")
+assert seq.shape == (2, 7) and info["transfer_bytes"] == 2 * (3 + 2) * 4
+assert torch.isfinite(torch.tensor(sequence_logprob(large, cfg, seq,
+                                                    device="cpu")))
+q = torch.randn(1, 4, 5, 16)
+assert flash_attention(q, q[:, :2], q[:, :2], kv_len=3).shape == q.shape
 print("ok", len(names))
 """
 
