@@ -104,15 +104,10 @@ def gqa_fwd(
 
     new_cache = cache
     if cache is None:
-        if not causal:
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=False,
-                                  softcap=cfg.attn_softcap)
-        else:
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True,
-                                  window=window or None,
-                                  softcap=cfg.attn_softcap)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=(window or None) if causal else None,
+                              softcap=cfg.attn_softcap)
     else:
         if window:
             raise NotImplementedError(

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: the boundary and quant kernels bit for bit (payload ints, scales
-and stepped rows), flash attention within ``tests/test_kernels.py``'s
-``TOL`` (2e-5 fp32, 4e-2 bf16).  Imports no JAX,
+and stepped rows), flash attention within ``FLASH_TOL`` (fp32 at
+``tests/test_kernels.py``'s ``TOL``, bf16 to one ulp).  Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
@@ -91,7 +91,9 @@ def test_wrappers_refuse_bad_operands(cuda_device):
         fused_cfg_step_quant(x, x, x[:2], torch.zeros(2, device=cuda_device))
 
 
-FLASH_TOL = {"f32": 2e-5, "bf16": 4e-2}
+# (atol, rtol): fp32 at tests/test_kernels.py's TOL; bf16 to one bf16 ulp
+# (rtol 8e-3 > 2^-7) over an atol of 1e-4, as chip_smoke.py holds it
+FLASH_TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-4, 8e-3)}
 FLASH_CASES = [
     # tests/test_kernels.py:52-58: (b, h, kv, s, t, d, causal, window, cap)
     (2, 4, 2, 64, 64, 32, True, None, None, None),
@@ -121,8 +123,8 @@ def test_flash_attention_matches_plain(cuda_device, b, h, kv, s, t, d, causal,
     ref = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == ref.shape
-    torch.testing.assert_close(out.float(), ref.float(), atol=FLASH_TOL[dtype],
-                               rtol=FLASH_TOL[dtype])
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
