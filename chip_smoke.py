@@ -4,10 +4,11 @@ card.
 
   python3 chip_smoke.py
 
-It drives the port's two main paths — the diffusion relay executor and
-the LM prefix relay at ``qwen3-4b`` width — and holds every CUDA kernel
-against its plain PyTorch version.  Phases, each failing the run
-(non-zero exit, no result line) on any mismatch:
+It drives the port's main paths — the diffusion relay executor, the LM
+prefix relay at ``qwen3-4b`` width and the same relay at
+``recurrentgemma-9b`` width — and holds every CUDA kernel against its
+plain PyTorch version.  Phases, each failing the run (non-zero exit, no
+result line) on any mismatch:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
@@ -32,19 +33,28 @@ against its plain PyTorch version.  Phases, each failing the run
    floor (that bound or the empty kernel's time, whichever is larger);
 6. flash attention against its plain version on the card (tolerances at
    ``FLASH_TOL``): the five shapes of ``tests/test_kernels.py`` in fp32
-   and bf16, and in bf16 the LM path's shapes in the model's strided
-   layout — decode (q (8, 32, 1, 128) over a cache of 128, kv_len 1, 37,
-   128), scoring (S = T = 128, causal) — and S = T = 4096 causal;
-7. flash attention's times per shape (decode, scoring, 4096, in the
-   model's layout): the kernel's, the plain version's and SDPA's beside
-   the bound;
+   and bf16, and in bf16 the LM paths' shapes in the model's strided
+   layout — ``qwen3-4b`` decode (q (8, 32, 1, 128) over a cache of 128,
+   kv_len 1, 37, 128), scoring (S = T = 128, causal) and S = T = 4096
+   causal; ``recurrentgemma-9b`` (MQA at head dim 256) decode (q (8, 16,
+   1, 256) over a ring of 128, kv_len 1, 37, 128), full rings of 16 and
+   2048 slots, scoring (S = T = 128, causal, window 2048), and fp32 cases
+   at head dim 256;
+7. flash attention's times per shape (both models' decode and scoring,
+   4096, in the model's layout): the kernel's, the plain version's and
+   SDPA's beside the bound;
+11. the RG-LRU scan against its plain version, bit for bit: the path's
+    shape (8, 128, 4096), ragged shapes, S = 1 and (1, 4096, 4096); then
+    its times at (8, 128, 4096) and (1, 4096, 4096) beside the plain
+    version's, the bound and the launch floor (run here, before the LM
+    paths' long runs, as the profiler needs);
 8. the LM main path: ``qwen3-4b`` (36 layers, bf16) as the large model and
    its 9-layer cut as the small one, random weights from seeded
    generators; 8 prompts of 64 tokens decode 64 new tokens large-only,
-   relayed at s = 16, 32, 48, and small-only, then ``sequence_logprob``
-   of each under the large model; flash attention must launch in both the
-   decode calls and the scoring forward, as many times as there are layer
-   calls, and the handoff bytes must follow the reference's formula;
+   relayed at s = 32, and small-only, then ``sequence_logprob`` of each
+   under the large model; flash attention must launch in both the decode
+   calls and the scoring forward, as many times as there are layer calls,
+   and the handoff bytes must follow the reference's formula;
 9. LM card against CPU on the same weights: full width, 2 layers, fp32,
    2 prompts of 16 tokens: teacher-forced logits and ``sequence_logprob``
    within 1e-5 relative, and an 8-token relay's tokens equal up to the
@@ -54,17 +64,37 @@ against its plain PyTorch version.  Phases, each failing the run
    decode step and in the scoring forward, the bf16 caches and the logits
    within ``LM_BF16_RTOL`` of the CPU's;
 10. LM times: ms per new token of each model and ms per relay request,
-    and the busy share of one relay run.
+    and the busy share of one relay run; then the ``qwen3-4b`` models are
+    freed;
+12. the RecurrentGemma main path: ``recurrentgemma-9b`` (38 layers, bf16)
+    as the large model and its 11-layer cut as the small one, random
+    weights from seeded generators, the same prompts, large-only, relayed
+    at s = 32 and small-only, then ``sequence_logprob`` of each under the
+    large model; exact launch counts: the RG-LRU scan never in decode and
+    once per recurrent layer (26) per scored batch, flash attention once
+    per attention layer (12 and 3) per decode step and 12 times per scored
+    batch;
+13. RecurrentGemma card against CPU on the same weights, at full width
+    with 5 layers (one super-block and the remainder, the depth
+    ``make_reduced`` keeps) and, for this check only, the window cut to 16
+    so that the ring wraps inside a 32-token run: fp32 as in phase 9
+    (logits and ``sequence_logprob`` within 1e-5, relay tokens up to the
+    first tie), and bf16: every layer's mixer output at every decode step
+    and in the scoring forward, the ``h``/``conv`` states and the rings
+    after every step, and the logits, within ``RG_BF16_RTOL``;
+14. RecurrentGemma times, as phase 10.
 
-Every profiled time comes from a session whose kernel records are
-complete (see :func:`profiled`); the profiled phases run before the LM
-path's long unprofiled runs where they can.
+The phases run in the order 1-7, 11, 8-10, 12-14.  Every profiled time
+comes from a session whose kernel records are complete (see
+:func:`profiled`); the profiled phases run before the LM paths' long
+unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -84,9 +114,17 @@ FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 MAIN_ROWS, WIRE_LEN = 4 * 8, 64  # 8 requests x 4 latent channels, 8x8
 RAW_RTOL, COMPRESSED_RTOL = 1e-4, 1e-3
-# LM path: 8 prompts of 64 tokens, 64 new tokens, relays at s
-LM_BATCH, LM_PROMPT, LM_TOTAL, LM_SPLITS = 8, 64, 64, (16, 32, 48)
+# LM paths: 8 prompts of 64 tokens, 64 new tokens, relays at s
+LM_BATCH, LM_PROMPT, LM_TOTAL, LM_SPLITS = 8, 64, 64, (32,)
 LM_SMALL_LAYERS = 9
+RG_NAME, RG_SMALL_LAYERS = "recurrentgemma-9b", 11
+# phase 13: one super-block (R, R, A) and the remainder (R, R); the
+# window cut to 16, for the check only, so that the ring wraps in a run of
+# 16 prompt tokens and 16 new ones
+RG_CHECK_LAYERS, RG_CHECK_WINDOW = 5, 16
+# RG-LRU scan shapes (B, S, R): the path's, ragged ones, S = 1, a long one
+RGLRU_SHAPES = [(LM_BATCH, LM_PROMPT + LM_TOTAL, 4096), (3, 70, 70),
+                (1, 1, 5), (2, 1, 33), (1, 4096, 4096)]
 LM_RTOL = 1e-5  # card against CPU, fp32 logits (norm-wise relative)
 MARGIN_FACTOR = 10.0  # a greedy step is a tie below 10x the logit gap
 # flash attention against its plain version, (atol, rtol): fp32 at
@@ -101,6 +139,14 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 8e-3)}
 # about five bf16 epsilons (2^-8); a wrong cache write or read moves an
 # attention output by O(1)
 LM_BF16_LAYERS, LM_BF16_RTOL = 4, 2e-2
+# recurrentgemma-9b at full width, 5 layers, window 16, bf16, card against
+# CPU, norm-wise as above: 2.3x the largest reading (RG-LRU block outputs
+# 1.09e-2 in decode and 1.01e-2 in scoring; attention 6.7e-3, logits
+# 7.2e-3, h and conv states 7.3e-3 and 6.3e-3, rings 3.8e-3; H100 80GB
+# HBM3, 700 W), and 2.5x under the weakest fault that
+# tests/test_torch_recurrentgemma.py injects (an h not carried moves the
+# mixer outputs by 0.063)
+RG_BF16_RTOL = 2.5e-2
 DIFFUSION_KERNELS = ("fused_cfg_step_quant", "fused_cfg_step_dequant",
                      "quant_int8", "dequant_int8")
 KERNELS = {
@@ -115,6 +161,8 @@ KERNELS = {
                      "src/repro/kernels/quant/kernel.py:60"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:78"),
+    "rglru_scan": ("src/repro_torch/csrc/rglru.cu",
+                   "src/repro/kernels/rglru/kernel.py:37"),
 }
 
 
@@ -145,13 +193,15 @@ def time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def profiled(run, calls: int = 1, counted: str = None, attempts: int = 3):
+def profiled(run, calls: int = 1, counted: str = None, records: int = None,
+             attempts: int = 3):
     """Device time (µs) of the kernels ``run()`` launches, from the
     profiler (CUPTI), and the profiler's averages by kernel.
 
     The session must hold every kernel record: ``run`` makes ``calls``
     calls that launch the same kernels, so the number recorded must be a
-    multiple of ``calls``; with ``counted`` (a kernel of
+    multiple of ``calls`` (with ``records``, the kernels one call
+    launches, exactly ``records * calls``); with ``counted`` (a kernel of
     ``build.LAUNCHES``), the records of that kernel must number its
     launches during ``run``.  On the H100 machine CUPTI has dropped
     records (all of them, or some at a session's end) in a process that
@@ -159,7 +209,8 @@ def profiled(run, calls: int = 1, counted: str = None, attempts: int = 3):
     is repeated, up to ``attempts`` times in all, and then this raises."""
     from repro_torch.kernels import build
 
-    symbol = {"flash_attention": "flash_fwd_kernel"}.get(counted)
+    symbol = {"flash_attention": "flash_fwd_kernel",
+              "rglru_scan": "rglru_scan_kernel"}.get(counted)
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
         before = build.LAUNCHES[counted] if counted else 0
@@ -171,6 +222,8 @@ def profiled(run, calls: int = 1, counted: str = None, attempts: int = 3):
         us = sum(e.self_device_time_total for e in averages)
         n = sum(e.count for e in averages if e.self_device_time_total > 0)
         complete = us > 0 and n % calls == 0
+        if records:
+            complete = complete and n == records * calls
         if counted:
             launched = build.LAUNCHES[counted] - before
             recorded = sum(e.count for e in averages if symbol in e.key)
@@ -183,7 +236,7 @@ def profiled(run, calls: int = 1, counted: str = None, attempts: int = 3):
     raise RuntimeError("check failed: the profiler lost device records")
 
 
-def device_ms(fn, iters: int = 50) -> float:
+def device_ms(fn, iters: int = 50, records: int = None) -> float:
     """Device time of one call of ``fn``: the durations of the kernels it
     launched, from the profiler, over ``iters`` calls."""
     for _ in range(min(5, iters)):
@@ -192,7 +245,7 @@ def device_ms(fn, iters: int = 50) -> float:
     def run():
         for _ in range(iters):
             fn()
-    return profiled(run, calls=iters)[0] / 1e3 / iters
+    return profiled(run, calls=iters, records=records)[0] / 1e3 / iters
 
 
 def busy(fn, wall_ms: float, counted: str = None) -> dict:
@@ -208,11 +261,12 @@ def busy(fn, wall_ms: float, counted: str = None) -> dict:
                                for e in top}}
 
 
-def timed(fn, iters: int = 200) -> dict:
+def timed(fn, iters: int = 200, records: int = None) -> dict:
     """``ms``: device time per call (profiler); ``call_ms``: CUDA-event
     time per call over back-to-back calls, which includes the host's
     launch overhead when the host is slower than the device."""
-    return {"ms": device_ms(fn, min(50, iters)), "call_ms": time_ms(fn, iters)}
+    return {"ms": device_ms(fn, min(50, iters), records),
+            "call_ms": time_ms(fn, iters)}
 
 
 def host_timed(fn):
@@ -304,6 +358,17 @@ def check_flash(gen, dev) -> float:
                   torch.bfloat16, True))
     cases.append((1, 32, 8, 4096, 4096, 128, True, None, None, None,
                   torch.bfloat16, True))
+    # recurrentgemma-9b: 16 query heads over 1 KV head of 256; ring
+    # decode, full rings (as after a wrap) of phase 13's 16 slots and the
+    # window's 2048, scoring inside the window; and fp32 at head dim 256
+    for dt in (torch.bfloat16, torch.float32):
+        cases += [(LM_BATCH, 16, 1, 1, steps, 256, False, None, None, kl, dt,
+                   True) for kl in ((1, 37, steps) if dt == torch.bfloat16
+                                    else (37,))]
+        cases.append((LM_BATCH, 16, 1, steps, steps, 256, True, 2048, None,
+                      None, dt, True))
+    cases += [(LM_BATCH, 16, 1, 1, w, 256, False, None, None, w,
+               torch.bfloat16, True) for w in (RG_CHECK_WINDOW, 2048)]
     worst, used = 0.0, {}
     for (b, h, kv, s, t, d, causal, window, cap, kv_len, dtype,
          layout) in cases:
@@ -330,8 +395,19 @@ def check_flash(gen, dev) -> float:
     return worst
 
 
-def lm_main_path(dev):
-    """Phase 8: returns the models, the prompts, the path's launches."""
+def mixer_layers(cfg, mixer: str) -> int:
+    """The number of layers of ``cfg`` whose mixer is ``mixer``."""
+    from repro_torch.models import transformer as tr
+
+    return sum(spec.mixer == mixer for spec in tr.layer_specs(cfg))
+
+
+def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
+    """Phases 8 and 12: the large model ``name`` and its ``small_layers``
+    cut; returns the models, their configs, the prompts and the path's
+    launches.  Flash attention launches once per attention layer per
+    decode step and per scored batch; the RG-LRU scan never in decode and
+    once per recurrent layer per scored batch."""
     from repro_torch import configs
     from repro_torch.kernels import build
     from repro_torch.models import common as cm
@@ -340,13 +416,15 @@ def lm_main_path(dev):
                                               sequence_logprob)
     from repro_torch.training.data import DataConfig, TokenPipeline
 
-    cfg_l = configs.get_config("qwen3-4b")
-    cfg_s = cfg_l.replace(n_layers=LM_SMALL_LAYERS)
+    cfg_l = configs.get_config(name)
+    cfg_s = cfg_l.replace(n_layers=small_layers)
     t0 = time.perf_counter()
-    large = tr.init_model(cfg_l, torch.Generator(device=dev).manual_seed(1), dev)
-    small = tr.init_model(cfg_s, torch.Generator(device=dev).manual_seed(2), dev)
+    large = tr.init_model(cfg_l, torch.Generator(device=dev)
+                          .manual_seed(seeds[0]), dev)
+    small = tr.init_model(cfg_s, torch.Generator(device=dev)
+                          .manual_seed(seeds[1]), dev)
     torch.cuda.synchronize()
-    print(f"LM models: large {cfg_l.n_layers} layers "
+    print(f"{name} models: large {cfg_l.n_layers} layers "
           f"{cm.count_params(large) / 1e9:.3f} B params, small "
           f"{cfg_s.n_layers} layers {cm.count_params(small) / 1e9:.3f} B, "
           f"{cfg_l.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
@@ -368,52 +446,73 @@ def lm_main_path(dev):
         runs[f"relay s={s}"] = (s, LM_TOTAL - s, seq, ms)
     seq, ms = host_timed(lambda: greedy_decode(small, cfg_s, prompt, LM_TOTAL))
     runs["small-only"] = (0, LM_TOTAL, seq, ms)
-    decode = build.LAUNCHES["flash_attention"]
-    # one launch per layer per decode step (prompt + new tokens)
-    steps = LM_PROMPT + LM_TOTAL
-    want = (cfg_l.n_layers * (steps + sum(LM_PROMPT + s for s in LM_SPLITS))
-            + cfg_s.n_layers * steps * (1 + len(LM_SPLITS)))
-    check(decode == want, f"flash launches in decode {decode}, want {want}")
+    decode = dict(build.LAUNCHES)
+    # decode steps (prompt + new tokens) of each model over all runs
+    steps_l = sum(LM_PROMPT + e for e, _, _, _ in runs.values() if e)
+    steps_s = sum(LM_PROMPT + LM_TOTAL for _, d, _, _ in runs.values() if d)
+    want_decode = {"flash_attention": mixer_layers(cfg_l, "attn") * steps_l
+                   + mixer_layers(cfg_s, "attn") * steps_s, "rglru_scan": 0}
+    got = {k: decode[k] for k in want_decode}
+    check(got == want_decode, f"{name}: launches in decode {got}, want "
+          f"{want_decode}")
 
-    logp = {name: sequence_logprob(large, cfg_l, r[2])
-            for name, r in runs.items()}
-    scoring = build.LAUNCHES["flash_attention"] - decode
-    check(scoring == cfg_l.n_layers * len(runs),
-          f"flash launches in scoring {scoring}")
+    logp = {run: sequence_logprob(large, cfg_l, r[2])
+            for run, r in runs.items()}
+    scoring = {k: build.LAUNCHES[k] - decode[k] for k in want_decode}
+    want_scoring = {
+        "flash_attention": mixer_layers(cfg_l, "attn") * len(runs),
+        "rglru_scan": mixer_layers(cfg_l, "rglru") * len(runs)}
+    check(scoring == want_scoring, f"{name}: launches in scoring "
+          f"{scoring}, want {want_scoring}")
     launches = dict(build.LAUNCHES)
 
     ref = runs["large-only"][2]
     prompt_t = torch.from_numpy(prompt).to(dev)
-    for name, (e, _, seq, _) in runs.items():
+    for run, (e, _, seq, _) in runs.items():
         check(seq.shape == (LM_BATCH, LM_PROMPT + LM_TOTAL)
               and seq.dtype == prompt_t.dtype
               and bool(((seq >= 0) & (seq < cfg_l.vocab_size)).all())
               and torch.equal(seq[:, :LM_PROMPT], prompt_t),
-              f"{name}: sequence {tuple(seq.shape)} out of range or prompt lost")
-        check(np.isfinite(logp[name]), f"{name}: logp {logp[name]}")
+              f"{run}: sequence {tuple(seq.shape)} out of range or prompt lost")
+        check(np.isfinite(logp[run]), f"{run}: logp {logp[run]}")
         # the relay's large segment is the large-only decode's prefix
         check(torch.equal(seq[:, :LM_PROMPT + e], ref[:, :LM_PROMPT + e]),
-              f"{name}: large-model prefix differs from large-only")
-    print(f"LM main path launches: decode {decode}, scoring {scoring}")
+              f"{run}: large-model prefix differs from large-only")
+    print(f"{name} main path launches: decode {json.dumps(got)}, "
+          f"scoring {json.dumps(scoring)}")
     print(f"{'config':12s} {'edge':>5s} {'dev':>5s} {'logp(large)':>12s} "
           f"{'wall ms':>9s}")
-    for name, (e, d, _, ms) in runs.items():
-        print(f"{name:12s} {e:5d} {d:5d} {logp[name]:12.4f} {ms:9.1f}")
+    for run, (e, d, _, ms) in runs.items():
+        print(f"{run:12s} {e:5d} {d:5d} {logp[run]:12.4f} {ms:9.1f}")
     return large, small, cfg_l, cfg_s, prompt, launches
 
 
-def lm_card_vs_cpu(dev, prompt) -> dict:
-    """Phase 9: full width, 2 layers, fp32; the same weights on both."""
-    from repro_torch import configs
+def rg_check_config(cfg):
+    """Phase 13's configuration: ``cfg`` at full width, ``RG_CHECK_LAYERS``
+    layers, each local-attention window cut to ``RG_CHECK_WINDOW`` (for
+    this check only: at the model's 2048 a 32-token run never wraps the
+    ring)."""
+    def cut(specs):
+        return tuple(dataclasses.replace(
+            spec, window=RG_CHECK_WINDOW if spec.window else None)
+            for spec in specs)
+    return cfg.replace(n_layers=RG_CHECK_LAYERS, pattern=cut(cfg.pattern),
+                       remainder=cut(cfg.remainder))
+
+
+def lm_card_vs_cpu(dev, prompt, cfg, seeds=(3, 4), s=4, total=8) -> dict:
+    """Phases 9 and 13, fp32: ``cfg`` in fp32 (full width, cut in depth),
+    the same weights on both; a relay of ``total`` new tokens at ``s``
+    after 16 tokens of 2 prompts."""
     from repro_torch.models import transformer as tr
     from repro_torch.serving.lm_relay import relay_decode, sequence_logprob
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products
-    cfg = configs.get_config("qwen3-4b").replace(n_layers=2, dtype="float32")
+    cfg = cfg.replace(dtype="float32")
     models = {role: tr.init_model(cfg, torch.Generator(device=dev)
                                   .manual_seed(seed), dev)
-              for role, seed in (("large", 3), ("small", 4))}
-    p2, s, total = prompt[:2, :16], 4, 8
+              for role, seed in zip(("large", "small"), seeds)}
+    p2 = prompt[:2, :16]
     places = {"card": dev, "cpu": torch.device("cpu")}
     out = {}
     for name, where in places.items():
@@ -463,7 +562,8 @@ def lm_card_vs_cpu(dev, prompt) -> dict:
     result = {"logits_rel": rel, "logp_rel": lp_rel,
               "tokens_equal_upto": upto, "tie_at": tie,
               "min_margin": min(margins)}
-    print(f"LM card vs CPU (2 layers, fp32): {json.dumps(result)}")
+    print(f"{cfg.name} card vs CPU ({cfg.n_layers} layers, fp32): "
+          f"{json.dumps(result)}")
     del models
     return result
 
@@ -474,73 +574,89 @@ def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def lm_bf16_card_vs_cpu(dev, prompt) -> dict:
-    """Phase 9, bf16: full width, ``LM_BF16_LAYERS`` layers, the main
-    path's dtype, the same weights on the card and the CPU (the plain
-    path).  The card greedy-decodes 8 tokens after 16 of a prompt; both
-    devices then feed those 24 tokens one by one through ``decode_step``
-    (the bf16 cache written and read as on the main path) and once through
-    ``model_fwd`` (the scoring forward).  Each layer's attention output at
-    each step, the final caches and the logits at each step are held
-    card against CPU.  The attention outputs are compared on their own:
-    with random weights the tied logits are dominated by the current
-    token's own embedding, so a wrong cache read would move them little."""
-    from repro_torch import configs
+def lm_bf16_card_vs_cpu(dev, prompt, cfg, tol: float, seed: int = 6,
+                        n_new: int = 8) -> dict:
+    """Phases 9 and 13, bf16: ``cfg`` (full width, cut in depth) in the
+    main path's dtype, the same weights on the card and the CPU (the plain
+    path).  The card greedy-decodes ``n_new`` tokens after 16 of a prompt;
+    both devices then feed those tokens one by one through ``decode_step``
+    (the bf16 caches written and read as on the main path) and once
+    through ``model_fwd`` (the scoring forward).  Each layer's mixer
+    output (attention or RG-LRU block) at each step and in the scoring
+    forward, every cache tensor (K/V, or the ``h`` and ``conv`` states)
+    after each step, and the logits are held card against CPU within
+    ``tol``, norm-wise.  The mixer outputs are compared on their own: with
+    random weights the tied logits are dominated by the current token's
+    own embedding, so a wrong cache read or state carry would move them
+    little."""
     from repro_torch.models import attention as attn
+    from repro_torch.models import recurrent as rec
     from repro_torch.models import transformer as tr
     from repro_torch.serving.lm_relay import greedy_decode
 
-    cfg = configs.get_config("qwen3-4b").replace(n_layers=LM_BF16_LAYERS)
-    model = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(6), dev)
-    seq = greedy_decode(model, cfg, prompt[:2, :16], 8, device=dev)
+    model = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+    seq = greedy_decode(model, cfg, prompt[:2, :16], n_new, device=dev)
     b, n = seq.shape
-    gqa_fwd, seen = attn.gqa_fwd, []
+    originals, seen = {"attn": attn.gqa_fwd, "rglru": rec.rglru_block_fwd}, []
 
-    def recording(*args, **kw):  # every layer's attention output
-        y, c = gqa_fwd(*args, **kw)
-        seen.append(y.float().cpu())
-        return y, c
+    def host(x):  # a copy on the host: the caches change in place
+        return x.to("cpu", torch.float32, copy=True)
+
+    def recording(kind):  # every layer's mixer output
+        def fwd(*args, **kw):
+            y, c = originals[kind](*args, **kw)
+            seen.append((kind, host(y)))
+            return y, c
+        return fwd
+
+    def by_kind(records, prefix):
+        out = {}
+        for kind, y in records:
+            out.setdefault(f"{prefix}_{kind}", []).append(y)
+        return out
 
     out = {}
-    attn.gqa_fwd = recording
+    attn.gqa_fwd, rec.rglru_block_fwd = recording("attn"), recording("rglru")
     try:
         for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
             model.to(where)
             toks = seq.to(where)
             cache = tr.init_model_cache(cfg, b, n, device=where)
-            logits = []
+            res = {"logits": []}
             with torch.no_grad():
                 for t in range(n):
                     lg, cache = tr.decode_step(model, cfg, cache,
                                                toks[:, t:t + 1], t)
-                    logits.append(lg[:, 0, :cfg.vocab_size].float().cpu())
-                decode_attn = list(seen)
+                    res["logits"].append(host(lg[:, 0, :cfg.vocab_size]))
+                    for c in cache["layers"]:
+                        for key, x in c.items():
+                            res.setdefault(f"cache_{key}", []).append(host(x))
+                res.update(by_kind(seen, "decode"))
                 seen.clear()
                 scoring = tr.model_fwd(model, cfg, {"tokens": toks})
-            out[name] = {
-                "decode_attn": decode_attn, "scoring_attn": list(seen),
-                "logits": logits,
-                "scoring_logits": scoring[..., :cfg.vocab_size].float().cpu(),
-                "cache": [c[kv].float().cpu() for c in cache["layers"]
-                          for kv in ("k", "v")]}
+            res.update(by_kind(seen, "scoring"))
+            res["scoring_logits"] = [host(scoring[:, j, :cfg.vocab_size])
+                                     for j in range(n)]
+            out[name] = res
             seen.clear()
     finally:
-        attn.gqa_fwd = gqa_fwd
+        attn.gqa_fwd, rec.rglru_block_fwd = originals["attn"], originals["rglru"]
     del model
     card, cpu = out["card"], out["cpu"]
-    check(len(card["decode_attn"]) == n * cfg.n_layers
-          and len(card["scoring_attn"]) == cfg.n_layers,
-          "bf16 LM: attention calls recorded")
+    kinds = {"attn": mixer_layers(cfg, "attn"),
+             "rglru": mixer_layers(cfg, "rglru")}
+    check(all(len(card.get(f"decode_{k}", ())) == n * m
+              and len(card.get(f"scoring_{k}", ())) == m
+              for k, m in kinds.items() if m)
+          and card.keys() == cpu.keys(), f"bf16 {cfg.name}: mixer calls recorded")
     rel = {key: max(norm_rel(a, c) for a, c in zip(card[key], cpu[key]))
-           for key in ("decode_attn", "scoring_attn", "logits", "cache")}
-    rel["scoring_logits"] = max(
-        norm_rel(card["scoring_logits"][:, j], cpu["scoring_logits"][:, j])
-        for j in range(n))
-    print(f"LM card vs CPU ({cfg.n_layers} layers, bf16, {b} prompts of "
-          f"{n} tokens), largest norm-wise relative error per step and "
+           for key in sorted(card)}
+    print(f"{cfg.name} card vs CPU ({cfg.n_layers} layers, bf16, {b} prompts "
+          f"of {n} tokens), largest norm-wise relative error per step and "
           f"layer: {json.dumps(rel)}")
-    check(max(rel.values()) <= LM_BF16_RTOL,
-          f"bf16 LM card vs CPU over {LM_BF16_RTOL}: {rel}")
+    check(max(rel.values()) <= tol,
+          f"bf16 {cfg.name} card vs CPU over {tol}: {rel}")
     return rel
 
 
@@ -552,24 +668,32 @@ def flash_times(dev, floor_ms) -> dict:
     gen = torch.Generator(device=dev).manual_seed(5)
     steps = LM_PROMPT + LM_TOTAL
     shapes = {
-        # (b, h, kv, s, t, d, causal, kv_len, iters)
-        "decode": (LM_BATCH, 32, 8, 1, steps, 128, False, steps, 200),
-        "scoring": (LM_BATCH, 32, 8, steps, steps, 128, True, None, 100),
-        "s4096": (1, 32, 8, 4096, 4096, 128, True, None, 10),
+        # (b, h, kv, s, t, d, causal, window, kv_len, iters)
+        "decode": (LM_BATCH, 32, 8, 1, steps, 128, False, None, steps, 200),
+        "scoring": (LM_BATCH, 32, 8, steps, steps, 128, True, None, None,
+                    100),
+        "s4096": (1, 32, 8, 4096, 4096, 128, True, None, None, 10),
+        # recurrentgemma-9b: the ring decode and the windowed scoring call
+        "rg_decode": (LM_BATCH, 16, 1, 1, steps, 256, False, None, steps,
+                      200),
+        "rg_scoring": (LM_BATCH, 16, 1, steps, steps, 256, True, 2048, None,
+                       100),
     }
     rows = {}
-    for name, (b, h, kv, s, t, d, causal, kv_len, iters) in shapes.items():
+    for name, (b, h, kv, s, t, d, causal, window, kv_len,
+               iters) in shapes.items():
         q, k, v = flash_inputs(gen, dev, b, h, kv, s, t, d, torch.bfloat16,
                                model_layout=True)
-        kw = dict(causal=causal, kv_len=kv_len)
+        # a window of at least s keys changes nothing for SDPA's causal mask
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
         kl = t if kv_len is None else kv_len
         k_l, v_l = k[:, :, :kl], v[:, :, :kl]
         kern = timed(lambda: flash_attention(q, k, v, **kw), iters)
         plain = timed(lambda: flash_attention_ref(q, k, v, **kw), iters)
         lib = timed(lambda: F.scaled_dot_product_attention(
             q, k_l, v_l, is_causal=causal, enable_gqa=True), iters)
-        b_ms, b_by = flash_bound(flash_work(b, h, kv, s, t, d, causal, None,
-                                            kl, 2), torch.bfloat16)
+        b_ms, b_by = flash_bound(flash_work(b, h, kv, s, t, d, causal,
+                                            window, kl, 2), torch.bfloat16)
         f_ms, f_by = max((b_ms, b_by), (floor_ms, "launch"))
         rows[name] = {"shape": [b, h, kv, s, t, d, causal, kl],
                       "ms": kern["ms"], "call_ms": kern["call_ms"],
@@ -578,14 +702,77 @@ def flash_times(dev, floor_ms) -> dict:
                       "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
                       "bound_ms": b_ms, "bound_by": b_by,
                       "floor_ms": f_ms, "floor_by": f_by}
-    print(f"flash_attention times, bf16 (b, h, kv, s, t, d, causal, kv_len): "
+    print(f"flash_attention times, bf16 (b, h, kv, s, t, d, causal, "
+          f"kv_len): "
           f"{json.dumps(rows)}")
     return rows
 
 
+def rglru_inputs(gen, dev, shape):
+    """Decays a in [0.3, 0.999) and inputs b ~ N(0, 0.2²), as
+    ``tests/test_kernels.py`` draws them."""
+    a = torch.rand(shape, generator=gen, device=dev) * 0.699 + 0.3
+    return a, torch.randn(shape, generator=gen, device=dev) * 0.2
+
+
+def check_rglru(gen, dev) -> float:
+    """Phase 11: the scan against its plain version, bit for bit."""
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    worst = 0.0
+    for shape in RGLRU_SHAPES:
+        a, b = rglru_inputs(gen, dev, shape)
+        out, ref = rglru_scan(a, b), rglru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((out.double() - ref.double()).abs().max())
+        worst = max(worst, err)
+        check(out.dtype == torch.float32 and torch.equal(out, ref),
+              f"rglru_scan {shape} differs from its plain version "
+              f"(max |err| {err})")
+    print(f"rglru_scan equals its plain version bit for bit: "
+          f"{json.dumps(RGLRU_SHAPES)}")
+    return worst
+
+
+def rglru_times(dev, floor_ms) -> dict:
+    """Phase 11: the scan's times at the path's shape and a long one.  No
+    single PyTorch call computes the recurrence (a cumprod/cumsum form
+    underflows), so there is no library time."""
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = {}
+    # (shape, iters of the kernel, iters of the plain loop)
+    for name, shape, iters, plain_iters in (
+            ("scoring", RGLRU_SHAPES[0], 200, 20),
+            ("long", (1, 4096, 4096), 20, 1)):
+        a, b = rglru_inputs(gen, dev, shape)
+        kern = timed(lambda: rglru_scan(a, b), iters, records=1)
+        # the plain loop launches a fill, then a product, a sum and a copy
+        # per step: the profiler has lost the last of 36,867 such records
+        # in one session, so each session's count is checked exactly
+        plain = timed(lambda: rglru_scan_ref(a, b), plain_iters,
+                      records=3 * shape[1] + 1)
+        n = int(np.prod(shape))
+        # a and b read once, h written once; a multiply and an add each
+        t_bytes, t_ops = 3 * 4 * n / HBM_BYTES_PER_S, 2 * n / FP32_OPS_PER_S
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        f_ms, f_by = max((b_ms, b_by), (floor_ms, "launch"))
+        rows[name] = {"shape": list(shape), "ms": kern["ms"],
+                      "call_ms": kern["call_ms"], "plain_ms": plain["ms"],
+                      "plain_call_ms": plain["call_ms"], "library_ms": None,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "floor_ms": f_ms, "floor_by": f_by}
+    print(f"rglru_scan times (B, S, R): {json.dumps(rows)}")
+    return rows
+
+
 def lm_times(large, small, cfg_l, cfg_s, prompt) -> dict:
-    """Phase 10: ms per new token, per relay request, and the busy share
-    of one relay run."""
+    """Phases 10 and 14: ms per new token, per relay request, and the busy
+    share of one relay run."""
     from repro_torch.serving.lm_relay import greedy_decode, relay_decode
 
     _, large_ms = host_timed(lambda: greedy_decode(large, cfg_l, prompt, LM_TOTAL))
@@ -603,8 +790,8 @@ def lm_times(large, small, cfg_l, cfg_s, prompt) -> dict:
         f"relay_s{s}_ms_per_batch": relay_ms,
         f"busy_relay_s{s}": busy(relay, relay_ms, counted="flash_attention"),
     }
-    print(f"LM times ({LM_BATCH} prompts of {LM_PROMPT}, {LM_TOTAL} new "
-          f"tokens): {json.dumps(times)}")
+    print(f"{cfg_l.name} times ({LM_BATCH} prompts of {LM_PROMPT}, "
+          f"{LM_TOTAL} new tokens): {json.dumps(times)}")
     return times
 
 
@@ -820,17 +1007,43 @@ def main() -> int:
     print(f"kernel times at R=8192, L=4096 fp32 ddim g=1: "
           f"{json.dumps(hbm_times)}")
 
-    # ---- 6-10. flash attention and the LM path ------------------------------
+    # ---- 6, 7, 11. flash attention and the RG-LRU scan ---------------------
     max_err["flash_attention"] = check_flash(gen, dev)
     flash_rows = flash_times(dev, empty["ms"])
-    large, small, cfg_l, cfg_s, prompt, lm_launches = lm_main_path(dev)
-    lm_card_vs_cpu(dev, prompt)
-    lm_bf16_card_vs_cpu(dev, prompt)
+    max_err["rglru_scan"] = check_rglru(gen, dev)
+    rglru_rows = rglru_times(dev, empty["ms"])
+
+    # ---- 8-10. the qwen3-4b LM path ---------------------------------------
+    from repro_torch import configs
+
+    large, small, cfg_l, cfg_s, prompt, qwen_launches = lm_main_path(
+        dev, "qwen3-4b", LM_SMALL_LAYERS)
+    lm_card_vs_cpu(dev, prompt, cfg_l.replace(n_layers=2))
+    lm_bf16_card_vs_cpu(dev, prompt, cfg_l.replace(n_layers=LM_BF16_LAYERS),
+                        LM_BF16_RTOL)
     lm_times(large, small, cfg_l, cfg_s, prompt)
-    launches["flash_attention"] = lm_launches["flash_attention"]
-    # the row of the shape launched most on the LM path: decode
+    del large, small
+    torch.cuda.empty_cache()
+
+    # ---- 12-14. the recurrentgemma-9b LM path ----------------------------
+    large, small, cfg_l, cfg_s, prompt, rg_launches = lm_main_path(
+        dev, RG_NAME, RG_SMALL_LAYERS, seeds=(11, 12))
+    rg_check = rg_check_config(configs.get_config(RG_NAME))
+    lm_card_vs_cpu(dev, prompt, rg_check, seeds=(13, 14), s=8, total=16)
+    lm_bf16_card_vs_cpu(dev, prompt, rg_check, RG_BF16_RTOL, seed=15,
+                        n_new=16)
+    lm_times(large, small, cfg_l, cfg_s, prompt)
+    del large, small
+
+    launches["flash_attention"] = (qwen_launches["flash_attention"]
+                                   + rg_launches["flash_attention"])
+    launches["rglru_scan"] = rg_launches["rglru_scan"]
+    # the rows of the shapes launched most on the LM paths: qwen3-4b's
+    # decode, and the RG-LRU scan's scoring shape
     main_times["flash_attention"] = {
         k: v for k, v in flash_rows["decode"].items() if k != "shape"}
+    main_times["rglru_scan"] = {
+        k: v for k, v in rglru_rows["scoring"].items() if k != "shape"}
 
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -13,6 +13,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _MODULES = {
     "qwen3-4b": "qwen3_4b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

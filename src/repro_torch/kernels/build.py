@@ -29,14 +29,15 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: each source with its flags on top of NVCC_FLAGS.  The boundary kernels
-#: promise their plain versions' bits: those round after every operation,
-#: and one ulp in a stepped value can flip an int8 at a rounding tie, so
-#: no FMA contraction.  Flash attention promises a tolerance and keeps
-#: nvcc's default FMAs.
+#: and the RG-LRU scan promise their plain versions' bits: those round
+#: after every operation (and one ulp in a stepped value can flip an int8
+#: at a rounding tie), so no FMA contraction.  Flash attention promises a
+#: tolerance and keeps nvcc's default FMAs.
 SOURCES = {
     "quant.cu": ("--fmad=false",),
     "fused_sampler.cu": ("--fmad=false",),
     "flash_attention.cu": (),
+    "rglru.cu": ("--fmad=false",),
 }
 HEADERS = ("rowquant.cuh",)
 # IEEE division and square root everywhere (no fast math)
@@ -61,6 +62,8 @@ SIGNATURES = {
     # q, k, v and o, causal, window, softcap, scale, kv_len
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         *(_LL,) * 12, _I, _I, _F, _F, _I),
+    # a, b, h, B, S, R
+    "rglru_scan": (_P, _P, _P, _I, _I, _I),
 }
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {name: 0 for name in SIGNATURES}

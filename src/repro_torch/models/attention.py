@@ -7,7 +7,11 @@ hand-written CUDA kernel on the card:
 * full sequence: ``causal=True`` (with the layer's window, if any), or
   ``causal=False`` for a bidirectional call;
 * decode at ``cache_pos``: ``causal=False, kv_len=cache_pos + 1`` over the
-  whole cache — the reference's ``causal_mask(1, T, cache_pos)``.
+  whole cache — the reference's ``causal_mask(1, T, cache_pos)``;
+* decode of a sliding-window layer, whose cache is a ring of ``w <=
+  window`` slots: the new K/V goes to slot ``cache_pos % w``, then
+  ``causal=False, kv_len=min(cache_pos + 1, w)`` over the whole ring — the
+  reference's ring-buffer validity mask.
 
 The projections stay plain matrix products, as they are plain ``jnp``
 products in the reference.  Weights keep the reference's einsum layouts:
@@ -16,7 +20,8 @@ products in the reference.  Weights keep the reference's einsum layouts:
 Not ported, and raising :class:`NotImplementedError` on every device
 (ROADMAP queue 1 says where each is lifted): cross-attention, MLA, a
 sharded call (head padding), a cached call with more than one token,
-and sliding-window decode.
+and windowed decode over a cache longer than the window (which the
+reference's own caches never are).
 """
 from __future__ import annotations
 
@@ -109,22 +114,34 @@ def gqa_fwd(
                               window=(window or None) if causal else None,
                               softcap=cfg.attn_softcap)
     else:
-        if window:
-            raise NotImplementedError(
-                "sliding-window decode (the ring-buffer cache) is not "
-                "ported: ROADMAP queue 1, item 10 (RecurrentGemma slice)")
         if s != 1:
             raise NotImplementedError(
                 "a cached call with more than one token is not ported: "
                 "ROADMAP queue 1, item 10 (chunked prefill)")
         t = cache["k"].shape[1]
-        if not 0 <= cache_pos < t:
+        if window and t > window:
+            raise NotImplementedError(
+                f"windowed decode over a cache longer than the window ({t} > "
+                f"{window}) is not ported: the kernel has no query offset, "
+                f"and init_gqa_cache caps a windowed layer's cache at its "
+                f"window (a ring buffer)")
+        if cache_pos < 0:
+            raise ValueError(f"cache_pos {cache_pos} is negative")
+        if window:
+            # ring buffer of t <= window slots: position p lives in slot
+            # p % t.  RoPE was applied at write time and softmax ignores
+            # slot order, so the written slots (all inside the window) are
+            # the keys
+            slot, kv_len = cache_pos % t, min(cache_pos + 1, t)
+        elif cache_pos < t:
+            slot, kv_len = cache_pos, cache_pos + 1
+        else:
             raise ValueError(f"cache_pos {cache_pos} outside a cache of {t}")
-        cache["k"][:, cache_pos] = k[:, 0]
-        cache["v"][:, cache_pos] = v[:, 0]
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
         out = flash_attention(q.transpose(1, 2), cache["k"].transpose(1, 2),
                               cache["v"].transpose(1, 2), causal=False,
-                              softcap=cfg.attn_softcap, kv_len=cache_pos + 1)
+                              softcap=cfg.attn_softcap, kv_len=kv_len)
     # the kernel's (B, H, S, hd) output is a view of a (B, S, H, hd) buffer
     y = out.transpose(1, 2).reshape(b, s, h * hd) @ p.wo.reshape(h * hd, d)
     return y, new_cache

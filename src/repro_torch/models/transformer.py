@@ -1,13 +1,14 @@
 """LM transformer (port of ``repro/models/transformer.py``) for layers of
-GQA attention and a dense or no MLP: ``qwen3-4b`` and the other dense
-configurations.
+GQA attention (global or sliding-window) or the Griffin RG-LRU block, with
+a dense or no MLP: ``qwen3-4b`` and the other dense configurations, and
+the hybrid ``recurrentgemma-9b``.
 
 The reference stacks each super-block's parameters on a leading
 ``n_repeats`` axis and scans over it; the port unrolls the super-blocks
 into one :class:`torch.nn.ModuleList` (:func:`layer_specs` gives each
 layer's spec: repeat ``r``, pattern slot ``j`` is layer
 ``r * len(pattern) + j``, then the remainder), and its caches into one
-list.  Recurrent mixers, the MoE, MLA, cross-attention, encoders and the
+list.  The xLSTM mixers, the MoE, MLA, cross-attention, encoders and the
 MTP head raise :class:`NotImplementedError` naming the ROADMAP slice that
 brings them.
 """
@@ -23,6 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import recurrent as rec
 
 
 def layer_specs(cfg: ArchConfig) -> Tuple[LayerSpec, ...]:
@@ -33,10 +35,12 @@ def layer_specs(cfg: ArchConfig) -> Tuple[LayerSpec, ...]:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise :class:`NotImplementedError` for what the port cannot run yet."""
     for spec in layer_specs(cfg):
-        if spec.mixer != "attn":
+        if spec.mixer in ("mlstm", "slstm"):
             raise NotImplementedError(
                 f"mixer {spec.mixer!r} is not ported: ROADMAP queue 1, item "
-                f"10 (rglru: RecurrentGemma slice; mlstm/slstm: xLSTM slice)")
+                f"10 (xLSTM slice)")
+        if spec.mixer not in ("attn", "rglru"):
+            raise ValueError(f"unknown mixer {spec.mixer!r}")
         if spec.mlp == "moe":
             raise NotImplementedError(
                 "the MoE MLP is not ported: ROADMAP queue 1, item 10 "
@@ -64,7 +68,7 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class Layer(nn.Module):
-    """Pre-norm attention (and dense MLP) block."""
+    """Pre-norm mixer (attention or RG-LRU) and dense MLP block."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec,
                  generator: torch.Generator, device):
@@ -72,7 +76,10 @@ class Layer(nn.Module):
         dt = cm.dtype_of(cfg)
         self.norm_mix = cm.param(torch.zeros(cfg.d_model, dtype=dt,
                                              device=device))
-        self.attn = attn.init_gqa(cfg, generator, device)
+        if spec.mixer == "rglru":
+            self.rglru = rec.init_rglru(cfg, generator, device)
+        else:
+            self.attn = attn.init_gqa(cfg, generator, device)
         if spec.mlp == "dense":
             self.norm_mlp = cm.param(torch.zeros(cfg.d_model, dtype=dt,
                                                  device=device))
@@ -86,6 +93,8 @@ def init_layer(cfg: ArchConfig, spec: LayerSpec, generator: torch.Generator,
 
 def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                      max_len: int, *, device) -> dict:
+    if spec.mixer == "rglru":
+        return rec.init_rglru_cache(cfg, batch, device=device)
     return attn.init_gqa_cache(cfg, batch, max_len, window=spec.window,
                                device=device)
 
@@ -95,8 +104,12 @@ def layer_fwd(p: Layer, cfg: ArchConfig, spec: LayerSpec, h: torch.Tensor,
               cache_pos: Optional[int] = None):
     """Returns ``(h, new_cache)``."""
     hin = cm.rms_norm(h, p.norm_mix, cfg.norm_eps)
-    out, c2 = attn.gqa_fwd(p.attn, cfg, hin, positions, window=spec.window,
-                           cache=cache, cache_pos=cache_pos)
+    if spec.mixer == "rglru":
+        out, c2 = rec.rglru_block_fwd(p.rglru, cfg, hin, cache=cache)
+    else:
+        out, c2 = attn.gqa_fwd(p.attn, cfg, hin, positions,
+                               window=spec.window, cache=cache,
+                               cache_pos=cache_pos)
     h = h + out
     if spec.mlp == "dense":
         h = h + mlp_mod.mlp_fwd(p.mlp, cfg,
@@ -144,7 +157,9 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
 
 def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                   device) -> dict:
-    """One {"k", "v"} cache per layer, under ``"layers"``."""
+    """One cache per layer, under ``"layers"``: {"k", "v"} for attention
+    (a ring of at most ``window`` slots for a sliding-window layer), {"h", "conv"}
+    for an RG-LRU block."""
     return {"layers": [init_layer_cache(cfg, spec, batch, max_len,
                                         device=device)
                        for spec in layer_specs(cfg)]}

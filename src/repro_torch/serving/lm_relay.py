@@ -7,7 +7,10 @@ the relay over the *token ladder* in the relay-program IR,
 :func:`execute_lm_program` compiles the plan (``compile_plan``) and folds
 the sequence through its canonical node order, and :func:`relay_decode`
 is the two-segment case.  Attention runs through the flash-attention
-kernel on the card (``models/attention.py``).
+kernel on the card (``models/attention.py``), and a RecurrentGemma
+model's scoring forward through the RG-LRU scan kernel
+(``models/recurrent.py``); the decode loop carries every layer's cache,
+K/V rings and recurrent states alike, unchanged.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; the
 models must live on that device.  ``execute_lm_program``'s span tracer is

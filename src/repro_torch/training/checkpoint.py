@@ -115,8 +115,11 @@ def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
     are unstacked: leaf ``params["lm"]["blocks"][j][...][r]`` becomes layer
     ``r * len(pattern) + j``, the remainder follows.  Weights keep the
     einsum layouts (``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo``
-    (H, hd, d), ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d)), in fp32;
-    ``load_state_dict`` casts them to the model's dtype."""
+    (H, hd, d), ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d); an RG-LRU
+    block's ``rglru`` leaves ``w_x``, ``w_g``, ``w_a``, ``w_i``, ``w_out``,
+    ``conv_w``, ``conv_b``, ``b_a``, ``b_i``, ``lam`` by name), in fp32;
+    ``load_state_dict`` casts them to each parameter's dtype, so ``lam``
+    stays fp32 in a bf16 model."""
     lm = params_np["lm"]
     n_pat = len(cfg.pattern)
     out = {"embed": lm["embed"], "final_norm": lm["final_norm"]}

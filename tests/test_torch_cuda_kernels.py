@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: the boundary and quant kernels bit for bit (payload ints, scales
-and stepped rows), flash attention within ``FLASH_TOL`` (fp32 at
+card: the boundary and quant kernels and the RG-LRU scan bit for bit
+(payload ints, scales, stepped rows, recurrent states), flash attention
+within ``FLASH_TOL`` (fp32 at
 ``tests/test_kernels.py``'s ``TOL``, bf16 to one ulp).  Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit:
 
@@ -21,6 +22,8 @@ from repro_torch.kernels.fused_sampler.ref import (fused_cfg_step_dequant_ref,
                                                    fused_cfg_step_quant_ref)
 from repro_torch.kernels.quant.ops import dequant_int8, quant_int8
 from repro_torch.kernels.quant.ref import dequant_int8_ref, quant_int8_ref
+from repro_torch.kernels.rglru.ops import rglru_scan
+from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
 # main-path wire rows (4 channels x batch 1 and 8, L = 8*8), ragged rows,
 # and a row longer than one warp holds (the block-per-row kernel)
@@ -106,6 +109,11 @@ FLASH_CASES = [
     (2, 32, 8, 70, 70, 128, True, None, None, None),
     # head dim 256 with everything on
     (1, 4, 2, 33, 200, 256, True, 24, 30.0, 150),
+    # recurrentgemma-9b (MQA at head dim 256): ring decode, a wrapped ring
+    # of 16 slots, scoring inside the window of 2048
+    (8, 16, 1, 1, 128, 256, False, None, None, 37),
+    (2, 16, 1, 1, 16, 256, False, None, None, 16),
+    (2, 16, 1, 70, 70, 256, True, 2048, None, None),
 ]
 
 
@@ -141,3 +149,34 @@ def test_flash_attention_takes_the_models_strided_layout(cuda_device):
                               vm.transpose(1, 2))
     assert out.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+# (B, S, R): recurrentgemma-9b's scoring shape, ragged widths, one step,
+# one channel, a long sequence
+RGLRU_SHAPES = [(8, 128, 4096), (3, 70, 70), (1, 1, 5), (2, 1, 33),
+                (1, 9, 1), (1, 4096, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RGLRU_SHAPES)
+def test_rglru_scan_equals_plain(cuda_device, shape):
+    rng = np.random.default_rng(sum(shape))
+    a = torch.from_numpy(rng.uniform(0.3, 0.999, size=shape)
+                         .astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy((rng.normal(size=shape) * 0.2)
+                         .astype(np.float32)).to(cuda_device)
+    out = rglru_scan(a, b)
+    ref = rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_refuses_bad_operands(cuda_device):
+    a = torch.zeros(2, 8, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(0, 1), a.transpose(0, 1))
+    with pytest.raises(ValueError, match="on the CPU or all on CUDA"):
+        rglru_scan(a, a.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        rglru_scan(a, a[:, :4])

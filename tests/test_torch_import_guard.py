@@ -1,7 +1,7 @@
 """The port stands alone: every ``repro_torch`` module imports, and a toy
-diffusion relay and a reduced LM relay run on the CPU, in a process where
-``jax`` and the reference package ``repro`` cannot be imported; no port
-source imports either."""
+diffusion relay and reduced LM relays (dense and RecurrentGemma) run on
+the CPU, in a process where ``jax`` and the reference package ``repro``
+cannot be imported; no port source imports either."""
 from __future__ import annotations
 
 import os
@@ -58,6 +58,18 @@ assert torch.isfinite(torch.tensor(sequence_logprob(large, cfg, seq,
                                                     device="cpu")))
 q = torch.randn(1, 4, 5, 16)
 assert flash_attention(q, q[:, :2], q[:, :2], kv_len=3).shape == q.shape
+
+from repro_torch.kernels.rglru.ops import rglru_scan
+
+rg = configs.make_reduced(configs.get_config("recurrentgemma-9b"))
+large, small = (tr.init_model(rg, torch.Generator().manual_seed(k), "cpu")
+                for k in (2, 3))
+seq, info = relay_decode(large, rg, small, rg, prompt, 3, 6, device="cpu")
+assert seq.shape == (2, 9) and info["transfer_bytes"] == 2 * (3 + 3) * 4
+assert torch.isfinite(torch.tensor(sequence_logprob(large, rg, seq,
+                                                    device="cpu")))
+a = torch.rand(2, 5, 3)
+assert rglru_scan(a, a).shape == a.shape
 print("ok", len(names))
 """
 

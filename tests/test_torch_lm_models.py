@@ -216,8 +216,8 @@ def test_weight_carry_over_unstacks_the_blocks(models):
 
 def test_unported_paths_raise(models):
     _, model = models
-    with pytest.raises(NotImplementedError, match="RecurrentGemma"):
-        tr.init_model(CFG.replace(pattern=(LayerSpec(mixer="rglru"),)),
+    with pytest.raises(NotImplementedError, match="xLSTM"):
+        tr.init_model(CFG.replace(pattern=(LayerSpec(mixer="mlstm"),)),
                       torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         tr.init_model(CFG.replace(pattern=(LayerSpec(mlp="moe"),),
@@ -230,7 +230,7 @@ def test_unported_paths_raise(models):
     cache = tr.init_model_cache(CFG, 1, 8, device="cpu")["layers"][0]
     with pytest.raises(NotImplementedError, match="more than one token"):
         attn.gqa_fwd(p, CFG, x, pos, cache=cache, cache_pos=0)
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
+    with pytest.raises(NotImplementedError, match="longer than the window"):
         attn.gqa_fwd(p, CFG, x[:, :1], pos[:, :1], window=4, cache=cache,
                      cache_pos=0)
     with pytest.raises(NotImplementedError, match="cross-attention"):
