@@ -16,21 +16,33 @@ result line) on any mismatch:
    the card — main-path shapes (R = 4·{1, 8} wire rows of L = 64), ragged
    shapes, one HBM-sized shape (R = 8192, L = 4096); fp32 and bf16; ddim
    and rf; guidance 1.0 and 3.5 — payloads, scales and stepped rows
-   exact;
+   exact; and the interior sampler step (``fused_cfg_step``) bit for bit
+   at the relay's latents (8, 8, 8, 4) and a straggler's (1, 8, 8, 4),
+   ragged shapes and (8192, 4096); fp32 and bf16; ddim (``ddim_coeffs(0.4,
+   0.6)``) and rf; guidance 1.0 and 3.5; eps_u its own tensor and eps_c
+   itself;
 3. the diffusion main path: the trained families on the card,
    ``generate_bucketed`` for 8 requests on each of the 11 raw arms and of
    the 10 compressed twins (fused and unfused boundaries, which must
-   agree), then ``quality_table``; every boundary kernel must have
-   launched on this path; a request re-run alone and in a pair agrees
-   with its row of 8 to 1e-4;
+   agree bit for bit), then ``quality_table``; every diffusion
+   kernel must have launched on this path, the interior step exactly
+   once per step of each F3 call but a fused hop's two boundary steps
+   (50 raw and unfused, 48 fused) and never on XL; a request re-run alone
+   and in a pair (``subset=``) equals its rows of 8 bit for bit;
 4. diffusion card against CPU: 2 requests per family on the same
-   host-drawn noise;
+   host-drawn noise; then F3's s = 15 relay guided (g = 3.5, an
+   unconditional input of zeros) through ``execute_program``, raw, int8
+   unfused and int8 fused, card against CPU, with exact interior-step
+   launches, two net calls a step, equal bytes, and latents that differ
+   from the unguided relay's;
 5. diffusion times: per-arm ms per request (host clock around a
    synchronized run) and the device's busy share of one run; the launch
    floor (an empty kernel); per kernel, the device time per call
    (profiler) and the time per back-to-back call (CUDA events) beside the
    plain version's, the library call's, the byte/operation bound and the
-   floor (that bound or the empty kernel's time, whichever is larger);
+   floor (that bound or the empty kernel's time, whichever is larger); the
+   interior step at the path's shape (unguided and guided) and at (8192,
+   4096) in fp32 and bf16, its library time the pair lerp + add;
 6. flash attention against its plain version on the card (tolerances at
    ``FLASH_TOL``): the five shapes of ``tests/test_kernels.py`` in fp32
    and bf16, and in bf16 the LM paths' shapes in the model's strided
@@ -147,10 +159,18 @@ LM_BF16_LAYERS, LM_BF16_RTOL = 4, 2e-2
 # tests/test_torch_recurrentgemma.py injects (an h not carried moves the
 # mixer outputs by 0.063)
 RG_BF16_RTOL = 2.5e-2
-DIFFUSION_KERNELS = ("fused_cfg_step_quant", "fused_cfg_step_dequant",
-                     "quant_int8", "dequant_int8")
+# the interior step's cases in phase 2: the relay's latents (8 requests, a
+# straggler's 1), ragged shapes and one HBM-sized shape
+STEP_SHAPES = [(8, 8, 8, 4), (1, 8, 8, 4), (13, 17), (2, 5, 7, 3), (1, 5),
+               (8192, 4096)]
+RF_DT = -0.02  # an rf step's coefficient in the kernel checks
+GUIDANCE = 3.5  # phase 4's guided relay and the guided kernel cases
+DIFFUSION_KERNELS = ("fused_cfg_step", "fused_cfg_step_quant",
+                     "fused_cfg_step_dequant", "quant_int8", "dequant_int8")
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
+    "fused_cfg_step": ("src/repro_torch/csrc/fused_sampler.cu",
+                       "src/repro/kernels/fused_sampler/kernel.py:48"),
     "fused_cfg_step_quant": ("src/repro_torch/csrc/fused_sampler.cu",
                              "src/repro/kernels/fused_sampler/kernel.py:126"),
     "fused_cfg_step_dequant": ("src/repro_torch/csrc/fused_sampler.cu",
@@ -393,6 +413,130 @@ def check_flash(gen, dev) -> float:
           f"max |err| {worst:.3e}, largest share of the tolerance used "
           f"{json.dumps(used)}")
     return worst
+
+
+def guided_relay(dev, fam_card, fam_cpu, noise, cond) -> dict:
+    """Phase 4, guidance: F3's s = 15 relay through ``execute_program``
+    over ``make_program(..., guidance=3.5)`` with an unconditional input,
+    raw, int8 unfused and int8 fused, on the card and on the CPU from the
+    same host noise; and the same relays unguided.  The unconditional
+    input is zeros of the conditioning's shape: a test input, not the
+    families' null prompt."""
+    from repro_torch.core.program import make_program
+    from repro_torch.core.relay import execute_program
+    from repro_torch.diffusion.families import role_fn, role_params
+    from repro_torch.kernels import build
+
+    spec = fam_card.spec
+    cond = torch.as_tensor(cond, dtype=torch.float32)
+    uncond = torch.zeros_like(cond)
+    s = 15
+    route = [("large", "p0", s), ("small", "p1", None)]
+    net_calls = [0]
+
+    def counting(fn):
+        def call(*args):
+            net_calls[0] += 1
+            return fn(*args)
+        return call
+
+    res, table = {}, {}
+    for mode in ("raw", "unfused", "fused"):
+        compress = mode != "raw"
+        for where, fam in (("card", fam_card), ("cpu", fam_cpu)):
+            place = dev if where == "card" else torch.device("cpu")
+            models = {r: (counting(role_fn(fam, r)), role_params(fam, r))
+                      for r in ("large", "small")}
+            for g in (GUIDANCE, 1.0):
+                prog = make_program(spec, route, guidance=g, compress=compress)
+                net_calls[0] = 0
+                before = build.LAUNCHES["fused_cfg_step"]
+                with torch.inference_mode():
+                    out, info = execute_program(
+                        spec, prog, models, noise.to(place), cond.to(place),
+                        uncond=uncond.to(place), fused_boundary=mode == "fused")
+                res[mode, where, g] = {
+                    "out": out.cpu(), "bytes": info["transfer_bytes"],
+                    "launches": build.LAUNCHES["fused_cfg_step"] - before,
+                    "net_calls": net_calls[0]}
+        steps = prog.total_steps
+        want_launches = steps - (2 if mode == "fused" else 0)
+        card, cpu = res[mode, "card", GUIDANCE], res[mode, "cpu", GUIDANCE]
+        plain = res[mode, "card", 1.0]
+        rel = norm_rel(card["out"], cpu["out"])
+        plain_rel = norm_rel(plain["out"], res[mode, "cpu", 1.0]["out"])
+        moved = norm_rel(card["out"], plain["out"])
+        table[mode] = {"card_vs_cpu_rel": rel, "unguided_card_vs_cpu_rel":
+                       plain_rel, "guided_vs_unguided_rel": moved,
+                       "bytes": card["bytes"], "launches": card["launches"],
+                       "net_calls": card["net_calls"]}
+        tol = COMPRESSED_RTOL if compress else RAW_RTOL
+        check(rel <= tol and plain_rel <= tol,
+              f"guided F3 relay ({mode}): card vs CPU rel {rel} "
+              f"({plain_rel} unguided)")
+        check(card["bytes"] == cpu["bytes"] == plain["bytes"],
+              f"guided F3 relay ({mode}): bytes {card['bytes']}, "
+              f"CPU {cpu['bytes']}, unguided {plain['bytes']}")
+        check(card["launches"] == plain["launches"] == want_launches,
+              f"guided F3 relay ({mode}): {card['launches']} interior-step "
+              f"launches ({plain['launches']} unguided), want {want_launches}")
+        # both nets on every step when guided, the conditional one alone
+        # at g = 1
+        check(card["net_calls"] == cpu["net_calls"] == 2 * steps
+              and plain["net_calls"] == steps,
+              f"guided F3 relay ({mode}): {card['net_calls']} net calls "
+              f"({plain['net_calls']} unguided) over {steps} steps")
+        check(bool(torch.isfinite(card["out"]).all()) and moved > 0.5,
+              f"guided F3 relay ({mode}): guided vs unguided rel {moved}")
+    print(f"guided F3 relay (s={s}, g={GUIDANCE}, uncond = zeros, 2 requests):"
+          f" {json.dumps(table)}")
+    return table
+
+
+def step_times(dev, gen, floor_ms) -> dict:
+    """Phase 5: the interior step's times, rf: at the path's shape as the
+    relay calls it (fp32, g = 1, eps_u is eps_c), guided there (g = 3.5,
+    eps_u its own tensor), and guided at (8192, 4096) in fp32 and bf16;
+    beside the plain version's, the bound and the launch floor.  No single
+    PyTorch call computes the step: the library time is the pair
+    ``torch.lerp`` (the combine) and ``torch.add(alpha=)`` (the update)."""
+    from repro_torch.kernels.fused_sampler import ops as fops
+    from repro_torch.kernels.fused_sampler import ref as fref
+
+    rows = {}
+    for name, shape, dtype, g in (
+            ("path", (8, 8, 8, 4), torch.float32, 1.0),
+            ("path_guided", (8, 8, 8, 4), torch.float32, GUIDANCE),
+            ("hbm_fp32", (8192, 4096), torch.float32, GUIDANCE),
+            ("hbm_bf16", (8192, 4096), torch.bfloat16, GUIDANCE)):
+        x, ec, eu = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for _ in range(3))
+        if g == 1.0:
+            eu = ec  # the relay's call: the unconditional net is not run
+        kw = dict(guidance=g, c1=RF_DT, c2=0.0, mode="rf")
+        kern = timed(lambda: fops.fused_cfg_step(x, ec, eu, **kw), records=1)
+        plain = timed(lambda: fref.fused_cfg_step_ref(x, ec, eu, **kw))
+        lib = timed(lambda: torch.add(x, torch.lerp(eu, ec, g), alpha=RF_DT),
+                    records=2)
+        # each distinct input read once, x' written once; the combine's
+        # subtract, multiply and add and the update's multiply and add
+        n, esize = x.numel(), x.element_size()
+        reads = 2 if eu is ec else 3
+        t_bytes = (reads + 1) * n * esize / HBM_BYTES_PER_S
+        t_ops = 5 * n / FP32_OPS_PER_S
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        f_ms, f_by = max((b_ms, b_by), (floor_ms, "launch"))
+        rows[name] = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                      "guidance": g, "ms": kern["ms"],
+                      "call_ms": kern["call_ms"], "plain_ms": plain["ms"],
+                      "plain_call_ms": plain["call_ms"],
+                      "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "floor_ms": f_ms, "floor_by": f_by}
+    print(f"fused_cfg_step times, rf (library: lerp + add, two calls): "
+          f"{json.dumps(rows)}")
+    return rows
 
 
 def mixer_layers(cfg, mixer: str) -> int:
@@ -861,9 +1005,26 @@ def main() -> int:
                          fref.fused_cfg_step_dequant_ref(
                              q, s, ec, eu, coeffs, guidance=g, mode=mode))
                     n_cases += 1
+    # the interior step: ddim (affine coefficients) and rf, g = 1 and 3.5,
+    # eps_u its own tensor or eps_c itself (as the relay passes it)
+    step_coeffs = {"ddim": fref.ddim_coeffs(0.4, 0.6), "rf": (RF_DT, 0.0)}
+    step_cases = 0
+    for shape in STEP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ec, eu = (torch.randn(shape, generator=gen, device=dev)
+                         .to(dtype) for _ in range(3))
+            for mode, (c1, c2) in step_coeffs.items():
+                for g in (1.0, GUIDANCE):
+                    for e_u in (eu, ec):
+                        kw = dict(guidance=g, c1=c1, c2=c2, mode=mode)
+                        note("fused_cfg_step",
+                             fops.fused_cfg_step(x, ec, e_u, **kw),
+                             fref.fused_cfg_step_ref(x, ec, e_u, **kw))
+                        step_cases += 1
     torch.cuda.synchronize()
     print(f"kernels equal their plain versions: {n_cases} boundary cases, "
-          f"{len(shapes)} shapes x fp32/bf16")
+          f"{len(shapes)} shapes x fp32/bf16; {step_cases} interior-step "
+          f"cases over {json.dumps(STEP_SHAPES)}")
 
     # ---- 3. the main path ------------------------------------------------
     fams = load_families(CKPTS, device=dev)
@@ -876,8 +1037,28 @@ def main() -> int:
                           fused_boundary=False, device=dev)
     seeds = np.arange(8)
 
+    def interior_steps(ex, arm):
+        """Launches of the interior step in one run of the arm's program:
+        every step of an rf (F3) program but a fused hop's emit and consume
+        steps, none of a ddim (XL) one."""
+        prog = arm.program
+        if fams[prog.family].spec.kind != "rf":
+            return 0
+        fused_hops = (sum(h.compress for h in prog.handoffs)
+                      if ex.fused_boundary else 0)
+        return prog.total_steps - 2 * fused_hops
+
+    step_launches = {}
+
     def served(ex, arm):
+        before = build.LAUNCHES["fused_cfg_step"]
         out = ex.generate_bucketed(arm, seeds)
+        got = build.LAUNCHES["fused_cfg_step"] - before
+        key = arm.label + ("" if ex.fused_boundary else "|unfused")
+        step_launches[key] = got
+        check(got == interior_steps(ex, arm),
+              f"{key}: {got} interior-step launches, want "
+              f"{interior_steps(ex, arm)}")
         check(out.shape == (8, 8, 8, 4) and np.isfinite(out).all(),
               f"{arm.label}: output shape {out.shape} or non-finite values")
         return out
@@ -885,12 +1066,11 @@ def main() -> int:
     build.reset_launches()
     for arm in raw_arms:
         served(ex_raw, arm)
-    boundary_gap = 0.0
     for arm in twins:
         out_f, out_u = served(ex_fused, arm), served(ex_unfused, arm)
-        gap = float(np.linalg.norm(out_f - out_u) / np.linalg.norm(out_u))
-        boundary_gap = max(boundary_gap, gap)
-        check(gap <= 1e-6, f"{arm.label}: fused vs unfused rel {gap}")
+        check(np.array_equal(out_f, out_u),
+              f"{arm.label}: fused vs unfused differ by "
+              f"{float(np.abs(out_f - out_u).max())}")
     tables = [ex_raw.quality_table(seeds),
               ex_fused.quality_table(seeds, arms=twins)]
     launches = dict(build.LAUNCHES)
@@ -902,23 +1082,28 @@ def main() -> int:
             for m in table[:, arm.idx]:
                 check(np.isfinite(list(m.values())).all(),
                       f"{arm.label}: non-finite quality {m}")
-    print(f"fused vs unfused compressed arms: max rel diff {boundary_gap:.3e}")
+    print(f"interior-step launches per 8-request call: "
+          f"{json.dumps(step_launches)}")
+    print(f"fused vs unfused compressed arms: bit-identical on all "
+          f"{len(twins)}")
 
-    # a lone request re-run (one row) and a pair (two rows) against their
-    # rows of the 8-request run: equal to rounding, not bit for bit, since
-    # cuBLAS and cuDNN choose their kernels by batch size
+    # straggler re-runs: a lone request (one row) and a pair (two rows)
+    # against their rows of the 8-request run, bit for bit (the re-run
+    # repeats the full call's bucket, rows and filler)
     lone = {}
     for ex, arm in ((ex_raw, raw_arms[3]), (ex_raw, raw_arms[8]),
-                    (ex_fused, twins[2])):
+                    (ex_fused, twins[2]), (ex_fused, twins[7])):
         full = ex.generate_bucketed(arm, seeds)
         lone[arm.label] = {}
-        for what, subset in (("one_row", [5]), ("bucket_of_two", [5, 6])):
+        for what, subset in (("one_row", [5]), ("two_rows", [6, 2])):
             rerun = ex.generate_bucketed(arm, seeds, subset=subset)
             ref = full[subset]
             lone[arm.label][what] = float(np.abs(rerun - ref).max())
-            rel = float(np.linalg.norm(rerun - ref) / np.linalg.norm(ref))
-            check(rel <= RAW_RTOL, f"{arm.label}: {what} re-run rel {rel}")
-    print(f"lone request vs its row of 8, max |diff|: {json.dumps(lone)}")
+            check(np.array_equal(rerun, ref),
+                  f"{arm.label}: {what} re-run differs from its rows by "
+                  f"{lone[arm.label][what]}")
+    print(f"straggler re-runs vs their rows of 8, max |diff|: "
+          f"{json.dumps(lone)}")
 
     # ---- 4. card against CPU on the same host-drawn noise ------------------
     cpu_fams = load_families(CKPTS, device="cpu")
@@ -938,6 +1123,9 @@ def main() -> int:
             check(rel <= (COMPRESSED_RTOL if compress else RAW_RTOL),
                   f"{arm.label}: card vs CPU rel {rel}")
     print(f"card vs CPU rel diff: {json.dumps(worst)}")
+    guided_relay(dev, fams["F3"], cpu_fams["F3"],
+                 ex_raw.noise(raw_arms[8], seeds[:2], per_sample=True),
+                 synth.batch(seeds[:2], "F3")[2])
 
     # ---- 5. times --------------------------------------------------------
     arm_ms = {}
@@ -1006,6 +1194,7 @@ def main() -> int:
     hbm_times = kernel_rows(8192, 4096)
     print(f"kernel times at R=8192, L=4096 fp32 ddim g=1: "
           f"{json.dumps(hbm_times)}")
+    step_rows = step_times(dev, gen, empty["ms"])
 
     # ---- 6, 7, 11. flash attention and the RG-LRU scan ---------------------
     max_err["flash_attention"] = check_flash(gen, dev)
@@ -1044,6 +1233,9 @@ def main() -> int:
         k: v for k, v in flash_rows["decode"].items() if k != "shape"}
     main_times["rglru_scan"] = {
         k: v for k, v in rglru_rows["scoring"].items() if k != "shape"}
+    main_times["fused_cfg_step"] = {
+        k: v for k, v in step_rows["path"].items()
+        if k not in ("shape", "dtype", "guidance")}
 
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,

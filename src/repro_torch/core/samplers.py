@@ -7,6 +7,15 @@ on the host; a segment moves its time values and the per-step coefficient
 vectors (:func:`step_coeffs`, computed on the host in fp32) to the
 latent's device once, so a card run and a CPU run step with the same
 coefficients.
+
+A rectified-flow step runs its combine and update in one call of the
+interior-step kernel (:func:`repro_torch.kernels.fused_sampler.ops.fused_cfg_step`):
+ε̂ = ε_u + g·(ε_c − ε_u), then x + Δt·ε̂, each operation rounded once as in
+:func:`cfg_combine` and :func:`rf_update`, so the step keeps their bits.
+Without ``uncond`` or at g = 1 the unconditional net is not evaluated and
+ε_u is ε_c itself, for which the combine returns ε_c.  A DDIM step stays
+on the two-term :func:`ddim_update`: the kernel's affine DDIM form is not
+bit-identical to it (≈5e-7 a step).
 """
 from __future__ import annotations
 
@@ -66,13 +75,29 @@ def _sample(kind: str, fn: Callable, params, x: torch.Tensor,
     steps = range(start, stop)
     if not steps:
         return x, (x.new_empty((0,) + x.shape) if capture_traj else None)
+    # the kernel's plain versions import this module
+    from repro_torch.kernels.fused_sampler import ops as fused_ops
+
     times = sigmas.to(x.device)
-    coeffs = torch.stack([step_coeffs(kind, sigmas, i) for i in steps]
-                         ).to(x.device)
+    host_coeffs = torch.stack([step_coeffs(kind, sigmas, i) for i in steps])
+    if kind == "rf":
+        # Δt of each step: the fp32 values rf_update multiplies by, read on
+        # the host (no device sync)
+        dts = host_coeffs[:, 0].tolist()
+    else:
+        coeffs = host_coeffs.to(x.device)
+    guided = uncond is not None and guidance != 1.0
     traj = []
     for k, i in enumerate(steps):
-        eps = cfg_combine(fn, params, x, times[i], cond, uncond, guidance)
-        x = step_update(kind, x, eps, coeffs[k])
+        if kind == "rf":
+            e_c = fn(params, x, times[i], cond)
+            e_u = fn(params, x, times[i], uncond) if guided else e_c
+            x = fused_ops.fused_cfg_step(
+                x, e_c, e_u, guidance=float(guidance) if guided else 1.0,
+                c1=dts[k], c2=0.0, mode="rf")
+        else:
+            eps = cfg_combine(fn, params, x, times[i], cond, uncond, guidance)
+            x = step_update(kind, x, eps, coeffs[k])
         if capture_traj:
             traj.append(x)
     return x, (torch.stack(traj) if capture_traj else None)

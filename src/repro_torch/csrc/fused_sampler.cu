@@ -1,6 +1,21 @@
-// Fused int8 segment boundaries: the sampler step that is the handoff.
+// The sampler-step kernels: the interior step, and the fused int8 segment
+// boundaries (the sampler step that is the handoff).
 //
-// Replaces the Pallas kernels
+// Interior step -- replaces the Pallas kernel
+//   repro/kernels/fused_sampler/kernel.py::fused_cfg_step_fwd
+//     (body _fused_kernel).
+// eps = eu + g*(ec - eu) with no skip at g == 1 (the TPU kernel combines
+// unconditionally; with eu aliasing ec that is ec for finite values), then
+// ddim: c1*x + c2*eps (the affine collapse) or rf: x + c1*eps, in fp32,
+// stored in x's dtype.  One flat grid-stride pass; g, c1 and c2 are launch
+// arguments (static in the TPU kernel); eu may alias ec, so no pointer is
+// __restrict__.  It reads 3*n*sizeof(T) bytes and writes n*sizeof(T): at
+// the relay's latents (8 x 8x8x4) launch latency bounds it.  A fused
+// elementwise pass is a natural Triton case; it is CUDA C++ so that it
+// builds into the one library beside the boundary kernels, with one launch
+// path and this source's --fmad=false.
+//
+// Boundaries -- replace the Pallas kernels
 //   repro/kernels/fused_sampler/kernel.py::fused_cfg_step_quant_fwd
 //     (body _fused_quant_kernel, tail _combine_update) -- the emit, and
 //   repro/kernels/fused_sampler/kernel.py::fused_cfg_step_dequant_fwd
@@ -59,6 +74,29 @@ __global__ void consume_kernel(const int8_t* __restrict__ q, const float* __rest
 }
 
 template <class T>
+__global__ void cfg_step_kernel(const T* x, const T* ec, const T* eu, float g, float c1,
+                                float c2, int mode, T* out, long long n) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float xv = repro::load_f32(x, i);
+    const float e_u = repro::load_f32(eu, i);
+    const float eps = __fadd_rn(e_u, __fmul_rn(g, __fsub_rn(repro::load_f32(ec, i), e_u)));
+    const float y = mode == repro::kModeDdim ? __fadd_rn(__fmul_rn(c1, xv), __fmul_rn(c2, eps))
+                                             : __fadd_rn(xv, __fmul_rn(c1, eps));
+    repro::store_f32(out, i, y);
+  }
+}
+
+template <class T>
+cudaError_t launch_cfg_step(const void* x, const void* ec, const void* eu, float g, float c1,
+                            float c2, int mode, void* out, long long n, cudaStream_t stream) {
+  cfg_step_kernel<T><<<repro::elementwise_grid(n, 256), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(ec), static_cast<const T*>(eu), g, c1, c2,
+      mode, static_cast<T*>(out), n);
+  return cudaGetLastError();
+}
+
+template <class T>
 cudaError_t launch_consume(const void* q, const void* s, const void* ec, const void* eu,
                            const void* coeffs, float g, int mode, void* out, long long rows,
                            int len, cudaStream_t stream) {
@@ -73,6 +111,20 @@ cudaError_t launch_consume(const void* q, const void* s, const void* ec, const v
 }  // namespace fused_impl
 
 extern "C" {
+
+// dtype: 0 = fp32, 1 = bf16 (of x, eps_c, eps_u and the output); mode: 0 =
+// ddim, 1 = rf
+int repro_fused_cfg_step(int device, const void* x, const void* ec, const void* eu, int dtype,
+                         float guidance, float c1, float c2, int mode, void* out, long long n,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return fused_impl::launch_cfg_step<float>(x, ec, eu, guidance, c1, c2, mode, out, n, st);
+  return fused_impl::launch_cfg_step<__nv_bfloat16>(x, ec, eu, guidance, c1, c2, mode, out, n,
+                                                    st);
+}
 
 // dtype: 0 = fp32, 1 = bf16 (of x, eps_c, eps_u); mode: 0 = ddim, 1 = rf
 int repro_fused_cfg_step_quant(int device, const void* x, const void* ec, const void* eu,

@@ -50,6 +50,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C signature of each launcher, between the leading device index and the
 # trailing stream
 SIGNATURES = {
+    # x, eps_c, eps_u, dtype, guidance, c1, c2, mode, out, n
+    "fused_cfg_step": (_P, _P, _P, _I, _F, _F, _F, _I, _P, _LL),
     # x, dtype, q, s, rows, len
     "quant_int8": (_P, _I, _P, _P, _LL, _I),
     # q, s, out, rows, len

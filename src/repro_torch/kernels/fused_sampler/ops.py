@@ -1,19 +1,47 @@
-"""Wrappers of the fused int8 boundary kernels over wire rows ``(..., L)``
-(rows = per-sample channel slices, L = H·W): the CUDA kernels from
-``csrc/fused_sampler.cu`` on CUDA tensors, the plain versions
-(``ref.py``) on CPU tensors.  Replaces
-``repro/kernels/fused_sampler/ops.py::fused_cfg_step_{quant,dequant}``.
+"""Wrappers of the sampler-step kernels of ``csrc/fused_sampler.cu``: the
+CUDA kernels on CUDA tensors, the plain versions (``ref.py``) on CPU
+tensors.  Replaces ``repro/kernels/fused_sampler/ops.py``:
 
-``coeffs`` is the (2,) fp32 vector of
-:func:`repro_torch.core.samplers.step_coeffs` on the operands' device:
-the kernels read it through a pointer, so no host sync is needed."""
+* :func:`fused_cfg_step` — the interior step over a latent of any shape
+  (nothing is padded);
+* :func:`fused_cfg_step_quant` / :func:`fused_cfg_step_dequant` — the
+  fused int8 boundaries over wire rows ``(..., L)`` (rows = per-sample
+  channel slices, L = H·W).  Their ``coeffs`` is the (2,) fp32 vector of
+  :func:`repro_torch.core.samplers.step_coeffs` on the operands' device:
+  the kernels read it through a pointer, so no host sync is needed."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_sampler.ref import (fused_cfg_step_dequant_ref,
-                                                    fused_cfg_step_quant_ref)
+                                                    fused_cfg_step_quant_ref,
+                                                    fused_cfg_step_ref)
+
+
+def fused_cfg_step(x, eps_c, eps_u, *, guidance: float = 1.0, c1: float = 1.0,
+                   c2: float = 0.0, mode: str = "ddim"):
+    """One interior sampler step: ε̂ = ε_u + g·(ε_c − ε_u), then "ddim" x′ =
+    c1·x + c2·ε̂ or "rf" x′ = x + c1·ε̂, in fp32; returns a new tensor in
+    x's dtype.  x, ε_c and ε_u share one shape and dtype (fp32 or bf16)
+    and are contiguous; ε_u may be the same tensor as ε_c."""
+    if mode not in build.MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {tuple(build.MODES)}")
+    build.check(x, "x", build.FLOAT_DTYPES)
+    build.check(eps_c, "eps_c", (x.dtype,), shape=x.shape)
+    build.check(eps_u, "eps_u", (x.dtype,), shape=x.shape)
+    if build.on_cpu(x, eps_c, eps_u):
+        return fused_cfg_step_ref(x, eps_c, eps_u, guidance=guidance,
+                                  mode=mode, c1=c1, c2=c2)
+    out = torch.empty_like(x)
+    if out.numel():
+        build.launch(
+            "fused_cfg_step", x.device, x.data_ptr(), eps_c.data_ptr(),
+            eps_u.data_ptr(), build.dtype_code(x), float(guidance),
+            float(c1), float(c2), build.MODES[mode], out.data_ptr(),
+            out.numel(),
+        )
+    return out
 
 
 def _check_common(eps_c, eps_u, coeffs, shape):

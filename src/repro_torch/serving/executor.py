@@ -60,12 +60,14 @@ class Executor:
     ``families`` must live on ``device`` (CUDA unless given; see
     :func:`repro_torch.diffusion.families.load_families`).  Determinism
     contract: :meth:`generate_bucketed` seeds each sample from its own
-    seed, so the same (seed, arm) gives the same output whatever bucket
-    it lands in — what partial-batch re-execution (``subset=``) relies
-    on.  On the CPU the rows agree bit for bit.  On CUDA they agree to
-    rounding only: cuBLAS and cuDNN choose their kernels by batch size, so
-    a request run alone or in two rows differs from its row of an
-    8-request run by up to ~2e-6 (``chip_smoke.py`` phase 3)."""
+    seed, so a sample's noise depends on its seed only.  A ``subset=``
+    re-run (the straggler re-issue) returns rows bit-identical to the
+    same rows of the full call, on the CPU and on CUDA: it re-runs the
+    whole micro-batch at the full call's bucket, rows and filler, and
+    keeps the subset's rows, so every library call sees the shapes and
+    inputs of the first run (cuBLAS and cuDNN choose their kernels by
+    batch size, so a smaller bucket would move the last bits).  The cost:
+    a re-issue computes the whole bucket, not just its stragglers."""
 
     def __init__(self, families: Dict[str, object],
                  arms: Optional[Sequence[Arm]] = None,
@@ -219,27 +221,29 @@ class Executor:
                           buckets=DEFAULT_BUCKETS, subset=None) -> np.ndarray:
         """Pad-to-bucket batched generation with per-sample noise: padded
         slots re-run the last seed and are sliced off.  ``subset`` —
-        indices into ``seeds`` — re-runs only those samples (the straggler
-        re-issue path); its rows equal the full call's rows (to rounding on
-        CUDA; see :class:`Executor`)."""
+        indices into ``seeds`` — returns only those samples' rows (the
+        straggler re-issue path), computed by the full call's run, so they
+        equal its rows bit for bit (see :class:`Executor`)."""
         seeds = np.asarray(seeds)
+        idx = None
         if subset is not None:
             idx = np.asarray(subset, dtype=np.intp)
             if idx.size == 0:
                 raise ValueError("empty subset: nothing to re-execute")
-            seeds = seeds[idx]
         n = len(seeds)
         b = bucketize(n, tuple(sorted(buckets)))
         if b == 1 and self.device.type == "cpu":
             # PyTorch's CPU matrix product takes another summation order
             # for a single row; beside a copy of itself a lone sample keeps
-            # its row's bits.  (On CUDA no bucket size keeps them.)
+            # its row's bits.  (On CUDA no bucket size keeps them; only a
+            # subset re-run, which repeats the full call, does.)
             b = 2
         if b > n:
             seeds = np.concatenate([seeds, np.repeat(seeds[-1:], b - n)])
         _, _, cond = synth.batch(seeds, arm.family or "XL")
         out = self.run(arm, self.noise(arm, seeds, per_sample=True), cond)
-        return out.cpu().numpy()[:n]
+        out = out.cpu().numpy()[:n]
+        return out if idx is None else out[idx]
 
     def quality_table(self, seeds: np.ndarray, arms=None) -> np.ndarray:
         """(N, n_arms) array of metric dicts, columns indexed by

@@ -1,29 +1,43 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: the boundary and quant kernels and the RG-LRU scan bit for bit
-(payload ints, scales, stepped rows, recurrent states), flash attention
+card: the interior sampler step, the boundary and quant kernels and the
+RG-LRU scan bit for bit (stepped latents, payload ints, scales, stepped
+rows, recurrent states), flash attention
 within ``FLASH_TOL`` (fp32 at
 ``tests/test_kernels.py``'s ``TOL``, bf16 to one ulp).  Imports no JAX,
-so it runs on a machine with only PyTorch and the CUDA toolkit:
+so it runs on a machine with only PyTorch and the CUDA toolkit.  It also
+holds the executor's straggler re-run to its rows of the full call, bit
+for bit, on the card:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Without a card every test skips (the kernels have no CPU build)."""
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.diffusion.families import load_families
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.fused_sampler.ops import (fused_cfg_step_dequant,
+from repro_torch.kernels.fused_sampler.ops import (fused_cfg_step,
+                                                   fused_cfg_step_dequant,
                                                    fused_cfg_step_quant)
-from repro_torch.kernels.fused_sampler.ref import (fused_cfg_step_dequant_ref,
-                                                   fused_cfg_step_quant_ref)
+from repro_torch.kernels.fused_sampler.ref import (ddim_coeffs,
+                                                   fused_cfg_step_dequant_ref,
+                                                   fused_cfg_step_quant_ref,
+                                                   fused_cfg_step_ref)
 from repro_torch.kernels.quant.ops import dequant_int8, quant_int8
 from repro_torch.kernels.quant.ref import dequant_int8_ref, quant_int8_ref
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
+from repro_torch.serving.arms import build_action_space
+from repro_torch.serving.executor import Executor
+
+CKPTS = Path(__file__).resolve().parents[1] / "results" / "ckpts"
 
 # main-path wire rows (4 channels x batch 1 and 8, L = 8*8), ragged rows,
 # and a row longer than one warp holds (the block-per-row kernel)
@@ -92,6 +106,58 @@ def test_wrappers_refuse_bad_operands(cuda_device):
         fused_cfg_step_quant(x, x, x, torch.zeros(2))
     with pytest.raises(ValueError, match="shape"):
         fused_cfg_step_quant(x, x, x[:2], torch.zeros(2, device=cuda_device))
+
+
+# the relay's latents (8 requests and a straggler's 1), ragged shapes
+STEP_SHAPES = [(8, 8, 8, 4), (1, 8, 8, 4), (13, 17), (2, 5, 7, 3), (1, 5)]
+STEP_COEFFS = {"ddim": ddim_coeffs(0.4, 0.6), "rf": (-0.02, 0.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("mode", sorted(STEP_COEFFS))
+@pytest.mark.parametrize("guidance", [1.0, 3.5])
+@pytest.mark.parametrize("shape", STEP_SHAPES)
+def test_fused_cfg_step_equals_plain(cuda_device, shape, guidance, mode,
+                                     dtype, alias):
+    """One launch, bit for bit; ``alias`` passes ε_u as ε_c itself."""
+    x, ec, eu = _inputs(shape, dtype, cuda_device, 7)
+    eu = ec if alias else eu
+    c1, c2 = STEP_COEFFS[mode]
+    before = build.LAUNCHES["fused_cfg_step"]
+    out = fused_cfg_step(x, ec, eu, guidance=guidance, c1=c1, c2=c2,
+                         mode=mode)
+    ref = fused_cfg_step_ref(x, ec, eu, guidance=guidance, c1=c1, c2=c2,
+                             mode=mode)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fused_cfg_step"] == before + 1
+    assert out.dtype == x.dtype and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_fused_cfg_step_refuses_bad_operands(cuda_device):
+    x = torch.zeros(8, 8, 8, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_cfg_step(x, x.transpose(1, 2), x)
+    with pytest.raises(ValueError, match="on the CPU or all on CUDA"):
+        fused_cfg_step(x, x, x.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        fused_cfg_step(x, x.to(torch.bfloat16), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx,compress", [(3, False), (8, False), (8, True)])
+def test_subset_rerun_equals_full_rows(cuda_device, idx, compress):
+    """A straggler re-run of 1 and of 2 rows equals its rows of the
+    8-request run bit for bit (XL and F3 relays, an F3 fused twin)."""
+    ex = Executor(load_families(CKPTS, device=cuda_device), device=cuda_device)
+    arm = build_action_space(compress=compress)[idx]
+    seeds = np.arange(8)
+    full = ex.generate_bucketed(arm, seeds)
+    for subset in ([5], [6, 2]):
+        np.testing.assert_array_equal(
+            ex.generate_bucketed(arm, seeds, subset=subset), full[subset])
 
 
 # (atol, rtol): fp32 at tests/test_kernels.py's TOL; bf16 to one bf16 ulp

@@ -181,6 +181,23 @@ def test_bucketed_rows_independent_of_bucket_and_companions(families):
                        ex.noise(arm, [9], per_sample=False)[0])
 
 
+@pytest.mark.parametrize("subset", [[5], [6, 2], [7, 0, 3]])
+@pytest.mark.parametrize("idx,compress", [(3, False), (8, False), (3, True),
+                                          (8, True)])
+def test_subset_rerun_equals_full_rows(families, idx, compress, subset):
+    """The straggler re-issue: a ``subset=`` re-run of an 8-request
+    micro-batch returns its rows of the full call bit for bit, for subsets
+    of 1, 2 and 3 rows in any order, on the XL and F3 relays, raw and
+    fused int8."""
+    ex = Executor(families[1], device="cpu")
+    arm = tarms.build_action_space(compress=compress)[idx]
+    seeds = np.asarray([3, 9, 4, 17, 8, 11, 2, 30])
+    full = ex.generate_bucketed(arm, seeds)
+    part = ex.generate_bucketed(arm, seeds, subset=subset)
+    assert part.shape == (len(subset), 8, 8, 4)
+    np.testing.assert_array_equal(part, full[subset])
+
+
 def test_executor_validation(families, monkeypatch):
     port = families[1]
     spec = port["XL"].spec

@@ -1,5 +1,6 @@
-"""The port stands alone: every ``repro_torch`` module imports, and a toy
-diffusion relay and reduced LM relays (dense and RecurrentGemma) run on
+"""The port stands alone: every ``repro_torch`` module imports, and toy
+diffusion relays (F3's guided by an unconditional input), the interior
+step's wrapper and reduced LM relays (dense and RecurrentGemma) run on
 the CPU, in a process where ``jax`` and the reference package ``repro``
 cannot be imported; no port source imports either."""
 from __future__ import annotations
@@ -40,6 +41,26 @@ for fam in ("XL", "F3"):
                                     fused_boundary=fused)
         assert out.shape == x.shape and torch.isfinite(out).all()
         assert info["transfer_bytes"] == 2 * 4 * 64 + 2 * 4 * 4
+
+# the interior step's kernel wrapper, and F3's guided relay through it
+from repro_torch.core.program import make_program
+from repro_torch.kernels.fused_sampler.ops import fused_cfg_step
+from repro_torch.kernels.fused_sampler.ref import ddim_coeffs
+
+c1, c2 = ddim_coeffs(0.4, 0.6)
+y = fused_cfg_step(x, x, x.flip(0), guidance=3.5, c1=c1, c2=c2, mode="ddim")
+assert y.shape == x.shape and torch.isfinite(y).all()
+guided = lambda p, x, t, c: 0.5 * x + 0.05 * c.mean() * torch.tanh(x)
+cond = torch.ones(2, 4)
+spec = SPECS["F3"]()
+route = [("large", "p0", 15), ("small", "p1", None)]
+outs = [execute_program(spec, make_program(spec, route, guidance=g,
+                                           compress=True),
+                        {r: (guided, None) for r in ("large", "small")}, x,
+                        cond, uncond=torch.zeros_like(cond),
+                        fused_boundary=True)[0] for g in (1.0, 3.5)]
+assert all(torch.isfinite(o).all() for o in outs)
+assert not torch.equal(outs[0], outs[1])
 
 from repro_torch import configs
 from repro_torch.kernels.flash_attention.ops import flash_attention
