@@ -11,7 +11,9 @@ plain PyTorch version.  Phases, each failing the run (non-zero exit, no
 result line) on any mismatch:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
-   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
+   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel),
+   with ``-Xptxas -v``'s registers, stack and spills of every flash
+   kernel;
 2. each of the four boundary kernels against its plain PyTorch version on
    the card — main-path shapes (R = 4·{1, 8} wire rows of L = 64), ragged
    shapes, one HBM-sized shape (R = 8192, L = 4096); fp32 and bf16; ddim
@@ -44,17 +46,20 @@ result line) on any mismatch:
    interior step at the path's shape (unguided and guided) and at (8192,
    4096) in fp32 and bf16, its library time the pair lerp + add;
 6. flash attention against its plain version on the card (tolerances at
-   ``FLASH_TOL``): the five shapes of ``tests/test_kernels.py`` in fp32
-   and bf16, and in bf16 the LM paths' shapes in the model's strided
-   layout — ``qwen3-4b`` decode (q (8, 32, 1, 128) over a cache of 128,
-   kv_len 1, 37, 128), scoring (S = T = 128, causal) and S = T = 4096
-   causal; ``recurrentgemma-9b`` (MQA at head dim 256) decode (q (8, 16,
-   1, 256) over a ring of 128, kv_len 1, 37, 128), full rings of 16 and
-   2048 slots, scoring (S = T = 128, causal, window 2048), and fp32 cases
-   at head dim 256;
+   ``FLASH_TOL``), each case run twice and equal to itself bit for bit:
+   the five shapes of ``tests/test_kernels.py`` in fp32 and bf16, and in
+   bf16 the LM paths' shapes in the model's strided layout — ``qwen3-4b``
+   decode (q (8, 32, 1, 128) over a cache of 128, kv_len 1, 37, 128, and
+   over caches of 2048 and 4096, kv_len 1, 37, T: split KV, whole splits
+   empty at 37), scoring (S = T = 128, causal) and S = T = 4096 causal;
+   ``recurrentgemma-9b`` (MQA at head dim 256) decode (q (8, 16, 1, 256)
+   over a ring of 128, kv_len 1, 37, 128), full rings of 16 and 2048
+   slots and the ring of 2048 at kv_len 37, scoring (S = T = 128, causal,
+   window 2048), and fp32 cases at head dim 256; scoring at S = 70
+   (ragged tiles) at head dims 128 and 256, plain and with a window of 24;
 7. flash attention's times per shape (both models' decode and scoring,
-   4096, in the model's layout): the kernel's, the plain version's and
-   SDPA's beside the bound;
+   4096, the two long-cache decodes, in the model's layout): the
+   kernel's, the plain version's and SDPA's beside the bound;
 11. the RG-LRU scan against its plain version, bit for bit: the path's
     shape (8, 128, 4096), ragged shapes, S = 1 and (1, 4096, 4096); then
     its times at (8, 128, 4096) and (1, 4096, 4096) beside the plain
@@ -66,7 +71,9 @@ result line) on any mismatch:
    relayed at s = 32, and small-only, then ``sequence_logprob`` of each
    under the large model; flash attention must launch in both the decode
    calls and the scoring forward, as many times as there are layer calls,
-   and the handoff bytes must follow the reference's formula;
+   every decode call on the decode kernel and every scoring call on the
+   scoring kernel (none on the CUDA-core one), and the handoff bytes must
+   follow the reference's formula;
 9. LM card against CPU on the same weights: full width, 2 layers, fp32,
    2 prompts of 16 tokens: teacher-forced logits and ``sequence_logprob``
    within 1e-5 relative, and an 8-token relay's tokens equal up to the
@@ -84,8 +91,8 @@ result line) on any mismatch:
     at s = 32 and small-only, then ``sequence_logprob`` of each under the
     large model; exact launch counts: the RG-LRU scan never in decode and
     once per recurrent layer (26) per scored batch, flash attention once
-    per attention layer (12 and 3) per decode step and 12 times per scored
-    batch;
+    per attention layer (12 and 3) per decode step (decode kernel) and 12
+    times per scored batch (scoring kernel);
 13. RecurrentGemma card against CPU on the same weights, at full width
     with 5 layers (one super-block and the remainder, the depth
     ``make_reduced`` keeps) and, for this check only, the window cut to 16
@@ -108,6 +115,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -186,9 +194,37 @@ KERNELS = {
 }
 
 
+# the profiler's name of each counted kernel: the three flash kernels share
+# the prefix (flash_fwd_kernel, flash_fwd_decode_kernel,
+# flash_fwd_scoring_kernel)
+KERNEL_SYMBOLS = {"flash_attention": "flash_impl::flash_fwd",
+                  "rglru_scan": "rglru_scan_kernel"}
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def flash_ptxas(log: str) -> list:
+    """``-Xptxas -v``'s report of each kernel of ``flash_attention.cu`` in
+    the build log: its name and template arguments, registers, stack and
+    spills."""
+    section = log.split("== flash_attention.cu", 1)[-1].split("\n== ", 1)[0]
+    out, name = [], None
+    for line in section.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?(flash_fwd_\w*?kernel)I(\w*?)EEEv",
+                          line)
+        if entry:
+            args = (entry.group(2).replace("13__nv_bfloat16", "bf16, ")
+                    .replace("Li", ""))
+            name = f"{entry.group(1)}<{'fp32, ' + args[1:] if args.startswith('f') else args}>"
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return out
 
 
 def card_line() -> str:
@@ -229,8 +265,7 @@ def profiled(run, calls: int = 1, counted: str = None, records: int = None,
     is repeated, up to ``attempts`` times in all, and then this raises."""
     from repro_torch.kernels import build
 
-    symbol = {"flash_attention": "flash_fwd_kernel",
-              "rglru_scan": "rglru_scan_kernel"}.get(counted)
+    symbol = KERNEL_SYMBOLS.get(counted)
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
         before = build.LAUNCHES[counted] if counted else 0
@@ -271,14 +306,20 @@ def device_ms(fn, iters: int = 50, records: int = None) -> float:
 def busy(fn, wall_ms: float, counted: str = None) -> dict:
     """Device time of the kernels of one call of ``fn`` (profiled run),
     and its share of ``wall_ms``, the same call's unprofiled wall time
-    (the profiler stretches the wall time of the run it traces); and the
-    five kernels with the most device time in that run."""
+    (the profiler stretches the wall time of the run it traces); the five
+    kernels with the most device time in that run; with ``counted``, the
+    device time of that kernel's records."""
     us, averages = profiled(fn, counted=counted)
     top = sorted(averages, key=lambda e: -e.self_device_time_total)[:5]
-    return {"device_busy_ms": us / 1e3, "wall_ms": wall_ms,
-            "busy_share": us / 1e3 / wall_ms,
-            "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                               for e in top}}
+    out = {"device_busy_ms": us / 1e3, "wall_ms": wall_ms,
+           "busy_share": us / 1e3 / wall_ms,
+           "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                              for e in top}}
+    if counted:
+        out[f"{counted}_ms"] = sum(
+            e.self_device_time_total for e in averages
+            if KERNEL_SYMBOLS[counted] in e.key) / 1e3
+    return out
 
 
 def timed(fn, iters: int = 200, records: int = None) -> dict:
@@ -358,7 +399,8 @@ def flash_inputs(gen, dev, b, h, kv, s, t, d, dtype, model_layout=False):
 
 
 def check_flash(gen, dev) -> float:
-    """Phase 6: the kernel against its plain version; returns max |err|."""
+    """Phase 6: the kernels against their plain version, each case run
+    twice and equal to itself bit for bit; returns max |err|."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -389,14 +431,30 @@ def check_flash(gen, dev) -> float:
                       None, dt, True))
     cases += [(LM_BATCH, 16, 1, 1, w, 256, False, None, None, w,
                torch.bfloat16, True) for w in (RG_CHECK_WINDOW, 2048)]
+    # decode over long caches, split over KV: kv_len 37 leaves whole
+    # splits empty; the ring of 2048 as it fills
+    cases += [(LM_BATCH, 32, 8, 1, t, 128, False, None, None, kl,
+               torch.bfloat16, True) for t in (2048, 4096)
+              for kl in (1, 37, t)]
+    cases.append((LM_BATCH, 16, 1, 1, 2048, 256, False, None, None, 37,
+                  torch.bfloat16, True))
+    # scoring at S = 70 (ragged tiles), plain and with a window shorter
+    # than S, at both tensor-core head dims the paths use
+    cases += [(2, h, kv, 70, 70, d, True, w, None, None, torch.bfloat16,
+               True) for h, kv, d in ((32, 8, 128), (16, 1, 256))
+              for w in (None, 24)]
     worst, used = 0.0, {}
     for (b, h, kv, s, t, d, causal, window, cap, kv_len, dtype,
          layout) in cases:
         q, k, v = flash_inputs(gen, dev, b, h, kv, s, t, d, dtype, layout)
         kw = dict(causal=causal, window=window, softcap=cap, kv_len=kv_len)
         out = flash_attention(q, k, v, **kw)
+        again = flash_attention(q, k, v, **kw)
         ref = flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        check(torch.equal(out, again),
+              f"flash_attention {(b, h, kv, s, t, d, causal, window, cap, kv_len)} "
+              f"{dtype}: two calls differ")
         diff = (out.double() - ref.double()).abs()
         err = float(diff.max())
         worst = max(worst, err)
@@ -409,9 +467,9 @@ def check_flash(gen, dev) -> float:
               f"flash_attention {(b, h, kv, s, t, d, causal, window, cap, kv_len)} "
               f"{dtype}: max |err| {err}, {share:.3f} of (atol {atol}, "
               f"rtol {rtol})")
-    print(f"flash_attention equals its plain version: {len(cases)} cases, "
-          f"max |err| {worst:.3e}, largest share of the tolerance used "
-          f"{json.dumps(used)}")
+    print(f"flash_attention equals its plain version: {len(cases)} cases "
+          f"(each twice, bit-identical), max |err| {worst:.3e}, largest "
+          f"share of the tolerance used {json.dumps(used)}")
     return worst
 
 
@@ -554,6 +612,7 @@ def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
     once per recurrent layer per scored batch."""
     from repro_torch import configs
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import common as cm
     from repro_torch.models import transformer as tr
     from repro_torch.serving.lm_relay import (greedy_decode, relay_decode,
@@ -577,6 +636,7 @@ def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
         global_batch=LM_BATCH)).batch(999)[0]
 
     build.reset_launches()
+    flash_ops.reset_variant_launches()
     runs = {}
     seq, ms = host_timed(lambda: greedy_decode(large, cfg_l, prompt, LM_TOTAL))
     runs["large-only"] = (LM_TOTAL, 0, seq, ms)
@@ -599,6 +659,12 @@ def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
     got = {k: decode[k] for k in want_decode}
     check(got == want_decode, f"{name}: launches in decode {got}, want "
           f"{want_decode}")
+    # every bf16 flash call of the path on a tensor-core kernel
+    variants = dict(flash_ops.VARIANT_LAUNCHES)
+    want_variants = {"simt": 0, "decode": want_decode["flash_attention"],
+                     "scoring": 0}
+    check(variants == want_variants, f"{name}: flash kernels in decode "
+          f"{variants}, want {want_variants}")
 
     logp = {run: sequence_logprob(large, cfg_l, r[2])
             for run, r in runs.items()}
@@ -608,6 +674,10 @@ def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
         "rglru_scan": mixer_layers(cfg_l, "rglru") * len(runs)}
     check(scoring == want_scoring, f"{name}: launches in scoring "
           f"{scoring}, want {want_scoring}")
+    want_variants["scoring"] = want_scoring["flash_attention"]
+    check(flash_ops.VARIANT_LAUNCHES == want_variants, f"{name}: flash "
+          f"kernels after scoring {flash_ops.VARIANT_LAUNCHES}, want "
+          f"{want_variants}")
     launches = dict(build.LAUNCHES)
 
     ref = runs["large-only"][2]
@@ -623,7 +693,8 @@ def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
         check(torch.equal(seq[:, :LM_PROMPT + e], ref[:, :LM_PROMPT + e]),
               f"{run}: large-model prefix differs from large-only")
     print(f"{name} main path launches: decode {json.dumps(got)}, "
-          f"scoring {json.dumps(scoring)}")
+          f"scoring {json.dumps(scoring)}; flash kernels "
+          f"{json.dumps(want_variants)}")
     print(f"{'config':12s} {'edge':>5s} {'dev':>5s} {'logp(large)':>12s} "
           f"{'wall ms':>9s}")
     for run, (e, d, _, ms) in runs.items():
@@ -822,6 +893,11 @@ def flash_times(dev, floor_ms) -> dict:
                       200),
         "rg_scoring": (LM_BATCH, 16, 1, steps, steps, 256, True, 2048, None,
                        100),
+        # decode over long caches: qwen3-4b at 4096, the ring of 2048
+        "decode_t4096": (LM_BATCH, 32, 8, 1, 4096, 128, False, None, 4096,
+                         50),
+        "rg_decode_t2048": (LM_BATCH, 16, 1, 1, 2048, 256, False, None, 2048,
+                            100),
     }
     rows = {}
     for name, (b, h, kv, s, t, d, causal, window, kv_len,
@@ -963,9 +1039,15 @@ def main() -> int:
     build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({build.library_path().name})")
-    for line in build.build_log_path().read_text().splitlines():
+    log = build.build_log_path().read_text()
+    for line in log.split("== flash_attention.cu", 1)[0].splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    flash = flash_ptxas(log)
+    check(len(flash) == 14, f"ptxas reported {len(flash)} flash kernels, "
+          f"want 14 (8 CUDA-core, 3 decode, 3 scoring)")
+    for line in flash:
+        print(f"  ptxas {line}")
 
     # ---- 2. each kernel against its plain version ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)

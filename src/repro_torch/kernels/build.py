@@ -61,9 +61,11 @@ SIGNATURES = {
     # q, s, eps_c, eps_u, dtype, coeffs, guidance, mode, out, rows, len
     "fused_cfg_step_dequant": (_P, _P, _P, _P, _I, _P, _F, _I, _P, _LL, _I),
     # q, k, v, o, dtype, B, H, KV, S, T, D, (b, h, s) element strides of
-    # q, k, v and o, causal, window, softcap, scale, kv_len
+    # q, k, v and o, causal, window, softcap, scale, kv_len, variant,
+    # split_len, splits, split scratch, split counters
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        *(_LL,) * 12, _I, _I, _F, _F, _I),
+                        *(_LL,) * 12, _I, _I, _F, _F, _I, _I, _I, _I, _P,
+                        _P),
     # a, b, h, B, S, R
     "rglru_scan": (_P, _P, _P, _I, _I, _I),
 }

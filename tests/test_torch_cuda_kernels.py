@@ -3,7 +3,8 @@ card: the interior sampler step, the boundary and quant kernels and the
 RG-LRU scan bit for bit (stepped latents, payload ints, scales, stepped
 rows, recurrent states), flash attention
 within ``FLASH_TOL`` (fp32 at
-``tests/test_kernels.py``'s ``TOL``, bf16 to one ulp).  Imports no JAX,
+``tests/test_kernels.py``'s ``TOL``, bf16 to one ulp) and bf16 flash
+attention bit for bit run to run.  Imports no JAX,
 so it runs on a machine with only PyTorch and the CUDA toolkit.  It also
 holds the executor's straggler re-run to its rows of the full call, bit
 for bit, on the card:
@@ -180,6 +181,17 @@ FLASH_CASES = [
     (8, 16, 1, 1, 128, 256, False, None, None, 37),
     (2, 16, 1, 1, 16, 256, False, None, None, 16),
     (2, 16, 1, 70, 70, 256, True, 2048, None, None),
+    # decode over long caches (split KV): qwen3-4b at T = 2048 and 4096,
+    # kv_len 37 leaving whole splits empty; recurrentgemma-9b's full ring
+    (8, 32, 8, 1, 2048, 128, False, None, None, 37),
+    (8, 32, 8, 1, 4096, 128, False, None, None, 4096),
+    (8, 16, 1, 1, 2048, 256, False, None, None, 37),
+    (8, 16, 1, 1, 2048, 256, False, None, None, 2048),
+    # scoring with a window shorter than S (whole tiles skipped), and the
+    # smallest tensor-core head dim, non-causal over a ragged kv_len
+    (2, 32, 8, 70, 70, 128, True, 24, None, None),
+    (2, 16, 1, 70, 70, 256, True, 24, None, None),
+    (2, 8, 2, 100, 100, 64, False, None, None, 77),
 ]
 
 
@@ -199,6 +211,21 @@ def test_flash_attention_matches_plain(cuda_device, b, h, kv, s, t, d, causal,
     assert out.dtype == q.dtype and out.shape == ref.shape
     atol, rtol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,cap,kv_len", FLASH_CASES)
+def test_flash_attention_bf16_is_deterministic(cuda_device, b, h, kv, s, t, d,
+                                               causal, window, cap, kv_len):
+    """Two calls give the same bits: the decode kernel merges its splits
+    in split order, with no floating-point atomics."""
+    rng = np.random.default_rng(s * t)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16).to(cuda_device)
+               for shape in ((b, h, s, d), (b, kv, t, d), (b, kv, t, d)))
+    kw = dict(causal=causal, window=window, softcap=cap, kv_len=kv_len)
+    assert torch.equal(flash_attention(q, k, v, **kw),
+                       flash_attention(q, k, v, **kw))
 
 
 @pytest.mark.cuda

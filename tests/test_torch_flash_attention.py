@@ -6,9 +6,17 @@ at the shapes of ``tests/test_kernels.py`` — and the decode mapping the
 port's model uses, ``causal=False, kv_len=cache_pos + 1``, against the
 reference model's ``_sdpa`` with ``causal_mask(1, T, cache_pos)``.
 
+The decode kernel's split-KV merge has a plain version of its own
+(``flash_attention_split_ref``), held to ``flash_attention_ref`` (fp32,
+1e-6) and to the Pallas kernel with ``block_k`` equal to the split length
+(its KV steps merge the same way).  The wrapper's dispatch rule
+(``ops.plan``, ``ops.decode_splits``) is tested here too: the LM paths'
+shapes go to the tensor-core kernels, fp32 to the CUDA-core one, the
+split count does not move with ``kv_len``, and misaligned views raise.
+
 Tolerance: ``tests/test_kernels.py``'s ``TOL`` (2e-5 fp32, 4e-2 bf16: one
 bf16 rounding of an output near 4).  ``tests/test_torch_cuda_kernels.py``
-holds the CUDA kernel to the plain version on the card.
+holds the CUDA kernels to the plain version on the card.
 """
 from __future__ import annotations
 
@@ -22,8 +30,11 @@ from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models import common as jcm
 from repro.models.attention import _sdpa
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     flash_attention_split_ref)
 
 torch.set_num_threads(1)
 
@@ -144,3 +155,161 @@ def test_plain_version_multiplies_by_the_kernel_scale():
                  None)
     np.testing.assert_allclose(_f32(out.transpose(1, 2)), _f32(sdpa),
                                atol=TOL["f32"], rtol=TOL["f32"])
+
+
+# (b, h, kv, s, t, d, causal, window, cap, kv_len, splits, split_len)
+SPLIT_CASES = [
+    # decode over 4 splits, the last two wholly at or past kv_len
+    (2, 8, 2, 1, 128, 32, False, None, None, 37, 4, 32),
+    # no valid key at all: every row zero
+    (1, 4, 2, 1, 64, 16, False, None, None, 0, 2, 32),
+    # causal, windowed and softcapped
+    (1, 4, 1, 16, 64, 32, True, 8, 30.0, None, 4, 16),
+    # S != T causal (key j attends query i iff j <= i)
+    (1, 4, 2, 8, 64, 32, True, None, None, None, 2, 32),
+    # the kernel's own splits of recurrentgemma-9b's full ring of 2048
+    # (16 query heads over 1 KV head, B = 8) at a narrow head dim
+    (1, 16, 1, 1, 2048, 16, False, None, None, 37,
+     *ops.decode_splits(2048, 8)),
+]
+
+
+@pytest.mark.parametrize(
+    "b,h,kv,s,t,d,causal,window,cap,kv_len,splits,split_len", SPLIT_CASES)
+def test_split_merge_matches_plain_and_pallas(b, h, kv, s, t, d, causal,
+                                               window, cap, kv_len, splits,
+                                               split_len):
+    """Per-split partials merged in split order equal the one-pass plain
+    version (fp32, 1e-6) and the Pallas kernel whose KV steps are the
+    splits (``TOL``)."""
+    (jq, jk, jv), (q, k, v) = _qkv(b, h, kv, s, t, d, "f32", seed=t + s)
+    kw = dict(causal=causal, window=window, softcap=cap, kv_len=kv_len)
+    out = flash_attention_split_ref(q, k, v, splits=splits,
+                                    split_len=split_len, **kw)
+    assert out.shape == (b, h, s, d) and out.dtype == q.dtype
+    np.testing.assert_allclose(_f32(out), _f32(flash_attention_ref(q, k, v,
+                                                                   **kw)),
+                               atol=1e-6, rtol=1e-6)
+    pallas = flash_attention_fwd(jq, jk, jv, block_q=s, block_k=split_len,
+                                 interpret=True, **kw)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), atol=TOL["f32"],
+                               rtol=TOL["f32"])
+    if kv_len == 0:
+        assert torch.count_nonzero(out) == 0
+
+
+def _model_views(b, h, kv, s, t, d, dtype):
+    """Uninitialised (B, H, S, D) and (B, KV, T, D) views of the model's
+    (B, S, H, D) projections and (B, T, KV, D) cache."""
+    return [torch.empty(shape, dtype=dtype).transpose(1, 2)
+            for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+
+
+# every flash call of the two LM paths (8 prompts): qwen3-4b decode over its
+# cache and scoring; recurrentgemma-9b decode over its ring (as wrapped
+# in chip_smoke.py's check, and at the model's window) and windowed
+# scoring; and the long caches of chip_smoke.py's phase 6
+LM_SHAPES = [
+    ("qwen decode", 8, 32, 8, 1, 128, 128, "decode"),
+    ("qwen scoring", 8, 32, 8, 128, 128, 128, "scoring"),
+    ("qwen decode, cache of 2048", 8, 32, 8, 1, 2048, 128, "decode"),
+    ("qwen decode, cache of 4096", 8, 32, 8, 1, 4096, 128, "decode"),
+    ("rg decode", 8, 16, 1, 1, 128, 256, "decode"),
+    ("rg decode, ring of 16", 8, 16, 1, 1, 16, 256, "decode"),
+    ("rg decode, ring of 2048", 8, 16, 1, 1, 2048, 256, "decode"),
+    ("rg scoring", 8, 16, 1, 128, 128, 256, "scoring"),
+]
+
+
+@pytest.mark.parametrize("name,b,h,kv,s,t,d,variant", LM_SHAPES)
+def test_lm_path_shapes_run_tensor_core_kernels(name, b, h, kv, s, t, d,
+                                                variant):
+    """bf16 at the LM paths' shapes goes to the mma.sync decode kernel or
+    the wgmma scoring kernel, with the splits of ``decode_splits``; fp32
+    at the same shapes goes to the CUDA-core kernel."""
+    plan = ops.plan(*_model_views(b, h, kv, s, t, d, torch.bfloat16))
+    assert plan.variant == variant, name
+    if variant == "decode":
+        assert (plan.splits, plan.split_len) == ops.decode_splits(t, b * kv)
+        assert s * (h // kv) <= ops.DECODE_ROWS
+    assert ops.plan(*_model_views(b, h, kv, s, t, d,
+                                  torch.float32)).variant == "simt"
+
+
+@pytest.mark.parametrize("d", [16, 32, 96])
+def test_other_head_dims_run_the_cuda_core_kernel(d):
+    assert ops.plan(*_model_views(2, 4, 2, 1, 64, d,
+                                  torch.bfloat16)).variant == "simt"
+
+
+@pytest.mark.parametrize("t,bkv", [(1, 1), (16, 128), (128, 64), (128, 8),
+                                   (300, 8), (2048, 8), (4096, 64),
+                                   (4096, 1), (100_000, 1)])
+def test_decode_splits_cover_the_cache(t, bkv):
+    """Splits are whole 64-key CTA steps, cover the cache with no split
+    wholly past T, fill at most one wave of CTAs (or one split per (b, KV
+    head)) and stay under the kernel's merge limit."""
+    splits, split_len = ops.decode_splits(t, bkv)
+    assert split_len % ops.DECODE_KEYS == 0 and split_len > 0
+    assert (splits - 1) * split_len < max(t, 1) <= splits * split_len
+    assert 1 <= splits <= ops.MAX_SPLITS
+    assert splits * bkv <= max(ops.DECODE_CTAS, bkv)
+
+
+def _captured_launches(monkeypatch, calls):
+    """Run the wrapper's CUDA branch on CPU tensors, recording each
+    launch's arguments instead of launching."""
+    monkeypatch.setattr(build, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, device, *args: calls.append(args))
+    monkeypatch.setattr(ops, "VARIANT_LAUNCHES",
+                        {name: 0 for name in ops.VARIANTS})
+    monkeypatch.setattr(ops, "_counters", {})
+
+
+@pytest.mark.parametrize("b,h,kv,t,d", [(8, 32, 8, 2048, 128),
+                                        (8, 16, 1, 2048, 256),
+                                        (2, 4, 1, 300, 64)])
+def test_split_count_does_not_follow_kv_len(monkeypatch, b, h, kv, t, d):
+    """A decode call's launch shape (variant, split length, splits) is the
+    same at every kv_len, so a captured step does not change with
+    cache_pos; with several splits the wrapper passes the fp32 scratch and
+    the counters."""
+    calls = []
+    _captured_launches(monkeypatch, calls)
+    q, k, v = _model_views(b, h, kv, 1, t, d, torch.bfloat16)
+    for kv_len in (0, 1, 37, t):
+        flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    # (..., kv_len, variant, split_len, splits, scratch, counters)
+    shapes = {args[-5:-2] for args in calls}
+    assert [args[-6] for args in calls] == [0, 1, 37, t]
+    splits, split_len = ops.decode_splits(t, b * kv)
+    assert shapes == {(ops.VARIANTS.index("decode"), split_len, splits)}
+    assert all((args[-2] != 0) == (splits > 1) and
+               (args[-1] != 0) == (splits > 1) for args in calls)
+    assert ops.VARIANT_LAUNCHES == {"simt": 0, "decode": 4, "scoring": 0}
+
+
+def test_misaligned_views_raise(monkeypatch):
+    """The tensor-core kernels copy 16 bytes at a time: a bf16 view at a
+    base off 16 bytes, or with a stride off 8 elements, is refused (no
+    other kernel takes it instead)."""
+    calls = []
+    _captured_launches(monkeypatch, calls)
+    buf = torch.empty(1, 4, 8, 136, dtype=torch.bfloat16)
+    q = buf[..., 1:129]  # base 2 bytes past an aligned buffer
+    k = torch.empty(1, 2, 8, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.plan(q, k, k)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q, k, k)
+    # (B, S, H, 132) projections cut to D = 128: a head stride of 132
+    qm = torch.empty(1, 20, 4, 132, dtype=torch.bfloat16)[..., :128]
+    km = torch.empty(1, 20, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(qm.transpose(1, 2), km.transpose(1, 2),
+                        km.transpose(1, 2))
+    assert calls == []
+    # the same operands in fp32 go to the CUDA-core kernel, which takes
+    # any stride
+    assert ops.plan(q.float(), k.float(), k.float()).variant == "simt"
