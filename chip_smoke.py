@@ -13,12 +13,18 @@ result line) on any mismatch:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel),
    with ``-Xptxas -v``'s registers, stack and spills of every flash
-   kernel;
+   kernel, and the registers and spills of the emit's kernels (each
+   route's range, those that spill, the path's instantiation);
 2. each of the four boundary kernels against its plain PyTorch version on
    the card — main-path shapes (R = 4·{1, 8} wire rows of L = 64), ragged
    shapes, one HBM-sized shape (R = 8192, L = 4096); fp32 and bf16; ddim
    and rf; guidance 1.0 and 3.5 — payloads, scales and stepped rows
-   exact; and the interior sampler step (``fused_cfg_step``) bit for bit
+   exact; the emit on every route of its launch plan (``ops.emit_plan``)
+   and every load width: the wire rows, L = 1, 5, 63, 65, 1023, 1024,
+   1025, 1500, (32, 16384) and (128, 16384), the longest row a cluster of
+   8 holds and one value longer, eps_u its own tensor and eps_c itself;
+   slices whose bases lie off 16 bytes; all-zero and subnormal rows; and
+   the interior sampler step (``fused_cfg_step``) bit for bit
    at the relay's latents (8, 8, 8, 4) and a straggler's (1, 8, 8, 4),
    ragged shapes and (8192, 4096); fp32 and bf16; ddim (``ddim_coeffs(0.4,
    0.6)``) and rf; guidance 1.0 and 3.5; eps_u its own tensor and eps_c
@@ -27,7 +33,8 @@ result line) on any mismatch:
    ``generate_bucketed`` for 8 requests on each of the 11 raw arms and of
    the 10 compressed twins (fused and unfused boundaries, which must
    agree bit for bit), then ``quality_table``; every diffusion
-   kernel must have launched on this path, the interior step exactly
+   kernel must have launched on this path, the emit exactly once per
+   compressed hop of each fused call (20), the interior step exactly
    once per step of each F3 call but a fused hop's two boundary steps
    (50 raw and unfused, 48 fused) and never on XL; a request re-run alone
    and in a pair (``subset=``) equals its rows of 8 bit for bit;
@@ -44,7 +51,11 @@ result line) on any mismatch:
    plain version's, the library call's, the byte/operation bound and the
    floor (that bound or the empty kernel's time, whichever is larger); the
    interior step at the path's shape (unguided and guided) and at (8192,
-   4096) in fp32 and bf16, its library time the pair lerp + add;
+   4096) in fp32 and bf16, its library time the pair lerp + add; the emit
+   (fp32, ddim, g = 1) at (32, 64), (4, 64), (32, 16384), (128, 16384)
+   and (8192, 4096), each with its plan's route, the bound and the floor,
+   and beside the plan at L = 64 a half warp per row, on the cluster
+   route each cluster size;
 6. flash attention against its plain version on the card (tolerances at
    ``FLASH_TOL``), each case run twice and equal to itself bit for bit:
    the five shapes of ``tests/test_kernels.py`` in fp32 and bf16, and in
@@ -173,6 +184,15 @@ STEP_SHAPES = [(8, 8, 8, 4), (1, 8, 8, 4), (13, 17), (2, 5, 7, 3), (1, 5),
                (8192, 4096)]
 RF_DT = -0.02  # an rf step's coefficient in the kernel checks
 GUIDANCE = 3.5  # phase 4's guided relay and the guided kernel cases
+# the emit's cases in phase 2: every route of ops.emit_plan (rows up to
+# L = 1024, cluster, and two-pass past a cluster of 8 full on chip)
+EMIT_SHAPES = [(4, 64), (32, 64), (3, 1), (3, 5), (3, 63), (3, 65), (3, 1023),
+               (3, 1024), (3, 1025), (3, 1500), (32, 16384), (128, 16384),
+               (1, 458_752), (1, 458_753)]
+# phase 5's emit shapes: the path's wire rows, a straggler's, SDXL- and
+# SD3.5-size latent rows (4x128x128 and 16x128x128, 8 requests), HBM-sized
+EMIT_TIME_SHAPES = [(MAIN_ROWS, WIRE_LEN), (4, WIRE_LEN), (32, 16384),
+                    (128, 16384), (8192, 4096)]
 DIFFUSION_KERNELS = ("fused_cfg_step", "fused_cfg_step_quant",
                      "fused_cfg_step_dequant", "quant_int8", "dequant_int8")
 KERNELS = {
@@ -224,6 +244,47 @@ def flash_ptxas(log: str) -> list:
         elif name and "Used" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
             name = None
+    return out
+
+
+def ptxas_entries(log: str, source: str) -> list:
+    """``-Xptxas -v``'s report of each kernel of ``source`` in the build
+    log: (mangled name, registers, bytes of spill stores and loads)."""
+    section = log.split(f"== {source}", 1)[-1].split("\n== ", 1)[0]
+    return [(name, int(regs), int(st) + int(ld)) for name, st, ld, regs in re.findall(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes "
+        r"spill loads.*?Used (\d+) registers", section, re.S)]
+
+
+def emit_kernel_name(mangled: str) -> str:
+    """``emit_rows_kernel<fp32, ddim, g=1, vec 2, 1 vector>`` from the
+    mangled name of an emit kernel."""
+    kind, t, mode, guided, vec, pt = re.search(
+        r"(emit_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d)ELb(\d)ELi(\d+)E(?:Li(\d+)E)?",
+        mangled).groups()
+    args = ["fp32" if t == "f" else "bf16", ("ddim", "rf")[int(mode)],
+            "guided" if guided == "1" else "g=1", f"vec {vec}"]
+    return f"{kind}<{', '.join(args + ([f'{pt} vectors'] if pt else []))}>"
+
+
+def emit_ptxas(log: str) -> list:
+    """Phase 1: the emit's kernels in the build log — per route the number
+    of instantiations and their register range, those that spill, and the
+    path's instantiation (fp32, ddim, g = 1, 8-byte loads, one vector a
+    lane)."""
+    entries = [e for e in ptxas_entries(log, "fused_sampler.cu") if "emit_" in e[0]]
+    out = []
+    for kind in ("emit_rows_kernel", "emit_cluster_kernel"):
+        mine = [e for e in entries if kind in e[0]]
+        check(mine, f"ptxas reported no {kind}")
+        regs = [r for _, r, _ in mine]
+        spilled = {emit_kernel_name(n): sp for n, _, sp in mine if sp}
+        out.append(f"{kind}: {len(mine)} instantiations, {min(regs)}-{max(regs)} "
+                   f"registers; spill bytes in {len(spilled)}: {json.dumps(spilled)}")
+    path = [e for e in entries if "emit_rows_kernelIfLi0ELb0ELi2ELi1E" in e[0]]
+    check(len(path) == 1, "ptxas reported no rows kernel at the path's plan")
+    out.append(f"the path's {emit_kernel_name(path[0][0])}: {path[0][1]} "
+               f"registers, {path[0][2]} bytes of spills")
     return out
 
 
@@ -595,6 +656,63 @@ def step_times(dev, gen, floor_ms) -> dict:
     print(f"fused_cfg_step times, rf (library: lerp + add, two calls): "
           f"{json.dumps(rows)}")
     return rows
+
+
+def emit_times(dev, gen, floor_ms) -> list:
+    """Phase 5: the emit (fp32, ddim, g = 1) at ``EMIT_TIME_SHAPES``: the
+    plan's route and shape, the device and call times beside the plain
+    version's, the bound and the floor; beside the plan, at L = 64 a half
+    warp per row (4 values a lane, 16-byte loads), on the cluster route
+    each cluster size (each equal to the plain version bit for bit)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_sampler import ops as fops
+    from repro_torch.kernels.fused_sampler import ref as fref
+
+    coeffs = torch.tensor([0.4, 0.6], device=dev)
+
+    def launch(plan, x, ec):  # the wrapper's launch, on another plan
+        rows, length = x.shape
+        q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        s = torch.empty(rows, 1, device=dev)
+        build.launch("fused_cfg_step_quant", dev, x.data_ptr(), ec.data_ptr(),
+                     ec.data_ptr(), build.dtype_code(x), coeffs.data_ptr(), 1.0,
+                     build.MODES["ddim"], q.data_ptr(), s.data_ptr(), rows,
+                     length, fops.EMIT_ROUTES.index(plan.route), plan.vec,
+                     plan.per_thread, plan.threads, plan.cluster)
+        return q, s
+
+    def variant(plan, x, ec, ref):
+        q, s = launch(plan, x, ec)
+        check(torch.equal(q, ref[0]) and torch.equal(s, ref[1]),
+              f"emit on {plan} differs from its plain version")
+        return timed(lambda: launch(plan, x, ec))["ms"]
+
+    out = []
+    for rows, length in EMIT_TIME_SHAPES:
+        x, ec = (torch.randn(rows, length, generator=gen, device=dev)
+                 for _ in range(2))
+        plan = fops.emit_plan(rows, length, x.dtype, [x.data_ptr(), ec.data_ptr()])
+        b_ms, b_by = bound("fused_cfg_step_quant", rows, length, 4, 1.0)
+        k = timed(lambda: fops.fused_cfg_step_quant(x, ec, ec, coeffs))
+        p = timed(lambda: fref.fused_cfg_step_quant_ref(
+            x, ec, ec, coeffs, guidance=1.0, mode="ddim"))
+        floor, floor_by = max((b_ms, b_by), (floor_ms, "launch"))
+        row = {"shape": [rows, length], **dataclasses.asdict(plan),
+               "ms": k["ms"], "call_ms": k["call_ms"], "plain_ms": p["ms"],
+               "plain_call_ms": p["call_ms"], "bound_ms": b_ms,
+               "bound_by": b_by, "floor_ms": floor, "floor_by": floor_by,
+               "share_of_floor": floor / k["ms"]}
+        ref = fref.fused_cfg_step_quant_ref(x, ec, ec, coeffs, guidance=1.0,
+                                            mode="ddim")
+        if length == WIRE_LEN:
+            row["half_warp_ms"] = variant(dataclasses.replace(
+                plan, vec=4, per_thread=4, threads=16), x, ec, ref)
+        if plan.route == "cluster":
+            row["cluster_ms"] = {c: variant(dataclasses.replace(plan, cluster=c),
+                                            x, ec, ref) for c in (1, 2, 4, 8)}
+        out.append(row)
+    print(f"emit (fp32, ddim, g = 1) by shape: {json.dumps(out)}")
+    return out
 
 
 def mixer_layers(cfg, mixer: str) -> int:
@@ -1040,9 +1158,12 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({build.library_path().name})")
     log = build.build_log_path().read_text()
-    for line in log.split("== flash_attention.cu", 1)[0].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for src in ("quant.cu", "fused_sampler.cu"):
+        for name, regs, spills in ptxas_entries(log, src):
+            if "emit_" not in name:
+                print(f"  ptxas {name}: {regs} registers, {spills} bytes of spills")
+    for line in emit_ptxas(log):
+        print(f"  ptxas {line}")
     flash = flash_ptxas(log)
     check(len(flash) == 14, f"ptxas reported {len(flash)} flash kernels, "
           f"want 14 (8 CUDA-core, 3 decode, 3 scoring)")
@@ -1087,6 +1208,64 @@ def main() -> int:
                          fref.fused_cfg_step_dequant_ref(
                              q, s, ec, eu, coeffs, guidance=g, mode=mode))
                     n_cases += 1
+    # the emit on every route of its plan and every load width
+    emit_cases, seen = 0, set()
+
+    def emit_case(x, ec, eu):
+        nonlocal emit_cases
+        for mode, cf in (("ddim", [0.4, 0.6]), ("rf", [RF_DT, 0.0])):
+            coeffs = torch.tensor(cf, device=dev)
+            for g in (1.0, GUIDANCE):
+                read = (x, ec) if g == 1.0 else (x, ec, eu)
+                p = fops.emit_plan(*x.shape, x.dtype, [t.data_ptr() for t in read])
+                seen.add((p.route, str(x.dtype)[6:], p.vec))
+                q, s = fops.fused_cfg_step_quant(x, ec, eu, coeffs, guidance=g,
+                                                 mode=mode)
+                qr, sr = fref.fused_cfg_step_quant_ref(x, ec, eu, coeffs,
+                                                       guidance=g, mode=mode)
+                note("fused_cfg_step_quant", q, qr)
+                note("fused_cfg_step_quant", s, sr)
+                emit_cases += 1
+        return q, s
+
+    for rows, length in EMIT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ec, eu = (torch.randn(rows, length, generator=gen, device=dev)
+                         .to(dtype) for _ in range(3))
+            emit_case(x, ec, eu)
+            emit_case(x, ec, ec)
+    # slices of flat buffers whose bases lie 4, 8 (fp32) or 2, 4, 8 (bf16)
+    # bytes off 16, and an odd L: the narrow-load plans
+    for rows, length in ((8, 64), (4, 1500), (8, 16384), (5, 17)):
+        for dtype, off in ((torch.float32, 1), (torch.float32, 2),
+                           (torch.bfloat16, 1), (torch.bfloat16, 2),
+                           (torch.bfloat16, 4)):
+            emit_case(*(torch.randn(rows * length + off, generator=gen, device=dev)
+                        .to(dtype)[off:].view(rows, length) for _ in range(3)))
+    # an all-zero row (scale 1.0) and a row of subnormal magnitude, which
+    # sends both IEEE divisions (x0 and the quantize) down their slow path
+    for length in (WIRE_LEN, 1500, 16384):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ec, eu = (torch.randn(4, length, generator=gen, device=dev)
+                         .to(dtype) for _ in range(3))
+            for t in (x, ec, eu):
+                t[0] = 0
+                t[1] *= 1e-39
+            q, s = emit_case(x, ec, eu)
+            check(float(s[0, 0]) == 1.0 and not q[0].any()
+                  and 0 < float(s[1, 0]) < torch.finfo(torch.float32).tiny,
+                  f"emit at L = {length}: zero row scale {float(s[0, 0])}, "
+                  f"subnormal row scale {float(s[1, 0])}")
+    widths = {(d, v) for _, d, v in seen}
+    check({r for r, _, _ in seen} == set(fops.EMIT_ROUTES)
+          and widths == {("float32", 1), ("float32", 2), ("float32", 4),
+                         ("bfloat16", 1), ("bfloat16", 2), ("bfloat16", 4),
+                         ("bfloat16", 8)},
+          f"the emit cases missed a route or a load width: {sorted(seen)}")
+    torch.cuda.synchronize()
+    print(f"emit equals its plain version: {emit_cases} cases; (route, "
+          f"dtype, elements per load) taken: {json.dumps(sorted(seen))}")
+
     # the interior step: ddim (affine coefficients) and rf, g = 1 and 3.5,
     # eps_u its own tensor or eps_c itself (as the relay passes it)
     step_coeffs = {"ddim": fref.ddim_coeffs(0.4, 0.6), "rf": (RF_DT, 0.0)}
@@ -1159,6 +1338,11 @@ def main() -> int:
     print(f"main path launches: {json.dumps(launches)}")
     check(all(launches[k] > 0 for k in DIFFUSION_KERNELS),
           f"a kernel never launched on the diffusion path: {launches}")
+    # one emit per compressed hop of each fused call: the served run and
+    # the quality table's
+    emits = 2 * sum(h.compress for a in twins for h in a.program.handoffs)
+    check(launches["fused_cfg_step_quant"] == emits,
+          f"{launches['fused_cfg_step_quant']} emits on the path, want {emits}")
     for table, arms in zip(tables, (raw_arms, twins)):
         for arm in arms:
             for m in table[:, arm.idx]:
@@ -1277,6 +1461,7 @@ def main() -> int:
     print(f"kernel times at R=8192, L=4096 fp32 ddim g=1: "
           f"{json.dumps(hbm_times)}")
     step_rows = step_times(dev, gen, empty["ms"])
+    emit_times(dev, gen, empty["ms"])
 
     # ---- 6, 7, 11. flash attention and the RG-LRU scan ---------------------
     max_err["flash_attention"] = check_flash(gen, dev)

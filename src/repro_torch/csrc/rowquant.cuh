@@ -1,4 +1,6 @@
-// Shared pieces of the row-wise int8 kernels (quant.cu, fused_sampler.cu).
+// Shared pieces of the row-wise int8 kernels (quant.cu, fused_sampler.cu):
+// the scale and quantize of a row, the sampler step, and the warp and
+// block row routes of quant.cu.
 //
 // Every floating-point step is an explicit round-to-nearest intrinsic
 // (__fadd_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn): the compiler may neither
@@ -41,18 +43,32 @@ __device__ __forceinline__ float cfg_combine(float ec, float eu, float g) {
   return g == 1.f ? ec : __fadd_rn(eu, __fmul_rn(g, __fsub_rn(ec, eu)));
 }
 
-// One sampler-step tail, as repro_torch.core.samplers.step_update:
+// One sampler-step tail, as repro_torch.core.samplers.step_update, from the
+// step's two coefficients (c0, c1):
 // ddim: x0 = (x - sqrt(1-c0)*eps)/sqrt(c0); sqrt(c1)*x0 + sqrt(1-c1)*eps
 // rf:   x + c0*eps
-__device__ __forceinline__ float step_update(int mode, float x, float eps, float c0,
-                                             float c1) {
+// split into the factors the coefficients give (step_factors: uniform, so
+// a kernel takes them once per thread, as the plain version takes the
+// roots once per call on the scalars) and the per-element part
+// (step_apply).  Together they round exactly where the plain version does.
+struct StepFactors {
+  float sqrt_1m_t, sqrt_t, sqrt_s, sqrt_1m_s;  // ddim: the four roots
+  float dt;                                    // rf: c0
+};
+
+__device__ __forceinline__ StepFactors step_factors(int mode, float c0, float c1) {
+  if (mode == kModeDdim)
+    return {__fsqrt_rn(__fsub_rn(1.f, c0)), __fsqrt_rn(c0), __fsqrt_rn(c1),
+            __fsqrt_rn(__fsub_rn(1.f, c1)), 0.f};
+  return {0.f, 0.f, 0.f, 0.f, c0};
+}
+
+__device__ __forceinline__ float step_apply(int mode, const StepFactors& f, float x, float eps) {
   if (mode == kModeDdim) {
-    const float x0 = __fdiv_rn(__fsub_rn(x, __fmul_rn(__fsqrt_rn(__fsub_rn(1.f, c0)), eps)),
-                               __fsqrt_rn(c0));
-    return __fadd_rn(__fmul_rn(__fsqrt_rn(c1), x0),
-                     __fmul_rn(__fsqrt_rn(__fsub_rn(1.f, c1)), eps));
+    const float x0 = __fdiv_rn(__fsub_rn(x, __fmul_rn(f.sqrt_1m_t, eps)), f.sqrt_t);
+    return __fadd_rn(__fmul_rn(f.sqrt_s, x0), __fmul_rn(f.sqrt_1m_s, eps));
   }
-  return __fadd_rn(x, __fmul_rn(c0, eps));
+  return __fadd_rn(x, __fmul_rn(f.dt, eps));
 }
 
 __device__ __forceinline__ float warp_max(float v) {

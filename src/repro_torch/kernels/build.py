@@ -56,8 +56,11 @@ SIGNATURES = {
     "quant_int8": (_P, _I, _P, _P, _LL, _I),
     # q, s, out, rows, len
     "dequant_int8": (_P, _P, _P, _LL, _I),
-    # x, eps_c, eps_u, dtype, coeffs, guidance, mode, q, s, rows, len
-    "fused_cfg_step_quant": (_P, _P, _P, _I, _P, _F, _I, _P, _P, _LL, _I),
+    # x, eps_c, eps_u, dtype, coeffs, guidance, mode, q, s, rows, len, then
+    # the plan (fused_sampler/ops.py::emit_plan): route, vec, per_thread,
+    # threads, cluster
+    "fused_cfg_step_quant": (_P, _P, _P, _I, _P, _F, _I, _P, _P, _LL, _I,
+                             _I, _I, _I, _I, _I),
     # q, s, eps_c, eps_u, dtype, coeffs, guidance, mode, out, rows, len
     "fused_cfg_step_dequant": (_P, _P, _P, _P, _I, _P, _F, _I, _P, _LL, _I),
     # q, k, v, o, dtype, B, H, KV, S, T, D, (b, h, s) element strides of

@@ -8,8 +8,14 @@ tensors.  Replaces ``repro/kernels/fused_sampler/ops.py``:
   fused int8 boundaries over wire rows ``(..., L)`` (rows = per-sample
   channel slices, L = H·W).  Their ``coeffs`` is the (2,) fp32 vector of
   :func:`repro_torch.core.samplers.step_coeffs` on the operands' device:
-  the kernels read it through a pointer, so no host sync is needed."""
+  the kernels read it through a pointer, so no host sync is needed.
+
+The emit launches what :func:`emit_plan` says (see ``csrc/fused_sampler.cu``
+for the routes)."""
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -52,11 +58,106 @@ def _check_common(eps_c, eps_u, coeffs, shape):
         raise ValueError(f"coeffs: expected 2 values, got {coeffs.numel()}")
 
 
+#: the emit's routes, in the kernel's numbering
+EMIT_ROUTES = ("rows", "cluster", "two_pass")
+#: longest row of the rows route: 32 lanes of ROW_VALUES values
+ROW_MAX = 1024
+#: most values a rows-route lane holds in registers
+ROW_VALUES = 32
+#: threads of a rows-route CTA, and of a cluster-route CTA
+ROW_THREADS, CLUSTER_THREADS = 128, 256
+#: CTAs of a cluster, at most (the portable limit)
+MAX_CLUSTER = 8
+#: CTAs the cluster size aims at: two 256-thread CTAs on each of the
+#: H100's 132 SMs, all resident at once (one wave)
+WAVE_CTAS = 2 * 132
+#: shared memory a CTA may use on the H100 (227 KB)
+SMEM_PER_CTA = 232_448
+#: most stepped fp32 values a cluster-route CTA stages (224 KiB); a row
+#: whose chunks exceed it over MAX_CLUSTER CTAs takes the two-pass route
+STAGE_MAX = 57_344
+
+
+@dataclasses.dataclass(frozen=True)
+class EmitPlan:
+    """How the emit kernel runs one call.
+
+    ``vec``: elements per load (16 bytes when every pointer and the row
+    pitch allow, else 8, 4, 2 bytes or one element).  ``per_thread``: the
+    row's values each thread steps (rows: held in registers; cluster:
+    staged in shared memory; two-pass: stepped twice).  ``threads``:
+    lanes per row (rows) or threads per CTA (cluster routes).
+    ``cluster``: CTAs per row.  ``onchip_bytes``: the stepped values one
+    CTA holds on chip."""
+    route: str
+    vec: int
+    per_thread: int
+    threads: int
+    cluster: int
+    onchip_bytes: int
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=256)
+def _emit_plan(rows: int, length: int, esize: int, align: int) -> EmitPlan:
+    vec = max(1, align // esize)
+    if length <= ROW_MAX:
+        # the fewest values a lane: a whole warp per row where the row
+        # fills it, loads no wider than a lane's share
+        per_lane = _pow2(-(-length // 32))
+        vec = min(vec, per_lane)
+        group = _pow2(-(-length // per_lane))
+        return EmitPlan("rows", vec, per_lane, group, 1,
+                        ROW_THREADS * per_lane * 4)
+    nvec = length // vec
+    # double the cluster while the CTAs stay within one wave and each
+    # thread keeps at least two vectors, then until a chunk fits on chip
+    cluster = 1
+    while (cluster < MAX_CLUSTER and rows * cluster * 2 <= WAVE_CTAS
+           and nvec // (2 * cluster) >= 2 * CLUSTER_THREADS):
+        cluster *= 2
+    while cluster < MAX_CLUSTER and -(-nvec // cluster) * vec > STAGE_MAX:
+        cluster *= 2
+    chunk = -(-nvec // cluster)  # vectors a CTA takes
+    per_thread = -(-chunk // CLUSTER_THREADS) * vec
+    if chunk * vec > STAGE_MAX:
+        return EmitPlan("two_pass", vec, per_thread, CLUSTER_THREADS, cluster, 0)
+    return EmitPlan("cluster", vec, per_thread, CLUSTER_THREADS, cluster,
+                    chunk * vec * 4)
+
+
+def emit_plan(rows: int, length: int, dtype: torch.dtype, ptrs) -> EmitPlan:
+    """The emit's launch plan for ``rows`` rows of ``length`` values of
+    ``dtype`` whose operands start at the addresses ``ptrs`` (those the
+    kernel reads): a pure function of these, so a CPU test can check it.
+
+    * ``rows`` (length ≤ :data:`ROW_MAX`): each row on a group of 1–32
+      lanes, each lane holding the fewest values that 32 lanes allow: at
+      the wire rows (L = 64) a warp of 2 values a lane, which beat a half
+      warp of 4 (``chip_smoke.py`` phase 5 times both).
+    * ``cluster``: a cluster of 1–:data:`MAX_CLUSTER` CTAs per row, sized
+      so that rows × cluster fills about one wave of :data:`WAVE_CTAS`
+      CTAs (each thread keeping at least two vectors) and each CTA's chunk
+      fits :data:`STAGE_MAX`.
+    * ``two_pass``: rows longer than :data:`MAX_CLUSTER` × :data:`STAGE_MAX`
+      values, on a cluster of :data:`MAX_CLUSTER`."""
+    esize = dtype.itemsize
+    align = 16
+    while align > esize and (any(p % align for p in ptrs)
+                             or length * esize % align):
+        align //= 2
+    return _emit_plan(rows, length, esize, align)
+
+
 def fused_cfg_step_quant(x, eps_c, eps_u, coeffs, *, guidance: float = 1.0,
                          mode: str = "ddim"):
     """Emit boundary: the step's output is written straight as the wire
     payload ``(q int8 shaped like x, s fp32 (..., 1))``; the stepped
-    latent never reaches memory."""
+    latent never reaches memory.  On CUDA tensors it launches the kernel
+    as :func:`emit_plan` says."""
     if mode not in build.MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {tuple(build.MODES)}")
     if build.on_cpu(x, eps_c, eps_u, coeffs):
@@ -70,11 +171,15 @@ def fused_cfg_step_quant(x, eps_c, eps_u, coeffs, *, guidance: float = 1.0,
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
     if q.numel():
+        rows = q.numel() // length
+        read = (x, eps_c) if guidance == 1.0 else (x, eps_c, eps_u)
+        p = emit_plan(rows, length, x.dtype, [t.data_ptr() for t in read])
         build.launch(
             "fused_cfg_step_quant", x.device, x.data_ptr(), eps_c.data_ptr(),
             eps_u.data_ptr(), build.dtype_code(x), coeffs.data_ptr(),
             float(guidance), build.MODES[mode], q.data_ptr(), s.data_ptr(),
-            q.numel() // length, length,
+            rows, length, EMIT_ROUTES.index(p.route), p.vec, p.per_thread,
+            p.threads, p.cluster,
         )
     return q, s
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: the interior sampler step, the boundary and quant kernels and the
 RG-LRU scan bit for bit (stepped latents, payload ints, scales, stepped
-rows, recurrent states), flash attention
+rows, recurrent states) — the emit on each route of its launch plan
+(``ops.emit_plan``), each load width, all-zero and subnormal rows —
+flash attention
 within ``FLASH_TOL`` (fp32 at
 ``tests/test_kernels.py``'s ``TOL``, bf16 to one ulp) and bf16 flash
 attention bit for bit run to run.  Imports no JAX,
@@ -24,7 +26,7 @@ from repro_torch.diffusion.families import load_families
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.fused_sampler.ops import (fused_cfg_step,
+from repro_torch.kernels.fused_sampler.ops import (emit_plan, fused_cfg_step,
                                                    fused_cfg_step_dequant,
                                                    fused_cfg_step_quant)
 from repro_torch.kernels.fused_sampler.ref import (ddim_coeffs,
@@ -80,6 +82,82 @@ def test_boundary_kernels_equal_plain(cuda_device, shape, guidance, mode,
                                      mode=mode)
     torch.cuda.synchronize()
     assert out.dtype == ec.dtype and torch.equal(out, ref)
+
+
+# the emit's routes (ops.emit_plan): the relay's wire rows (R = 4 and 32,
+# L = 64) and ragged and boundary lengths on the rows route; L = 1025 and
+# 1500 and SDXL- and SD3.5-size latent rows (32 and 128 rows of 16,384) on
+# the cluster route; the longest row a cluster of 8 holds on chip, and one
+# value longer (the two-pass route)
+EMIT_SHAPES = [(4, 64), (32, 64), (3, 1), (3, 5), (3, 63), (3, 65), (3, 1023),
+               (3, 1024), (3, 1025), (3, 1500), (32, 16384), (128, 16384),
+               (1, 458_752), (1, 458_753)]
+EMIT_ROUTE = {1024: "rows", 458_752: "cluster", 458_753: "two_pass"}
+
+
+def _emit_equal(x, ec, eu, mode, guidance, device):
+    cf = torch.tensor(COEFFS[mode], device=device)
+    before = build.LAUNCHES["fused_cfg_step_quant"]
+    q, s = fused_cfg_step_quant(x, ec, eu, cf, guidance=guidance, mode=mode)
+    qr, sr = fused_cfg_step_quant_ref(x, ec, eu, cf, guidance=guidance,
+                                      mode=mode)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fused_cfg_step_quant"] == before + 1
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("mode", sorted(COEFFS))
+@pytest.mark.parametrize("guidance", [1.0, 3.5])
+@pytest.mark.parametrize("shape", EMIT_SHAPES)
+def test_emit_equals_plain(cuda_device, shape, guidance, mode, dtype, alias):
+    """q and s bit for bit, one launch a call; ``alias`` passes ε_u as ε_c
+    itself."""
+    x, ec, eu = _inputs(shape, dtype, cuda_device, 8)
+    plan = emit_plan(*shape, x.dtype, [x.data_ptr(), ec.data_ptr()])
+    if shape[1] in EMIT_ROUTE:
+        assert plan.route == EMIT_ROUTE[shape[1]]
+    _emit_equal(x, ec, ec if alias else eu, mode, guidance, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset", [("f32", 1), ("f32", 2), ("bf16", 1),
+                                          ("bf16", 2), ("bf16", 4)])
+@pytest.mark.parametrize("shape", [(8, 64), (4, 1500), (8, 16384), (5, 17)])
+def test_emit_narrow_loads_equal_plain(cuda_device, shape, dtype, offset):
+    """Slices ``buf[offset:]`` of flat buffers, whose bases lie 2, 4 or 8
+    bytes off 16, and an odd L take the narrow-load plans."""
+    n = shape[0] * shape[1]
+    bufs = _inputs((n + offset,), dtype, cuda_device, 9)
+    x, ec, eu = (b[offset:].view(shape) for b in bufs)
+    esize = x.element_size()
+    plan = emit_plan(*shape, x.dtype, [t.data_ptr() for t in (x, ec, eu)])
+    assert plan.vec * esize < 16
+    for mode in sorted(COEFFS):
+        for guidance in (1.0, 3.5):
+            _emit_equal(x, ec, eu, mode, guidance, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(4, 64), (4, 1500), (4, 16384)])
+def test_emit_zero_and_subnormal_rows(cuda_device, shape, dtype):
+    """An all-zero row takes scale 1.0 and q = 0; a row of subnormal
+    magnitude sends both IEEE divisions (x̂0 and the quantize) down their
+    slow path."""
+    x, ec, eu = _inputs(shape, dtype, cuda_device, 10)
+    for t in (x, ec, eu):
+        t[0] = 0
+        t[1] *= 1e-39
+    assert 0 < float(x[1].float().abs().max()) < torch.finfo(torch.float32).tiny
+    for mode in sorted(COEFFS):
+        for guidance in (1.0, 3.5):
+            q, s = _emit_equal(x, ec, eu, mode, guidance, cuda_device)
+            assert float(s[0, 0]) == 1.0 and not q[0].any()
+            assert 0 < float(s[1, 0]) < torch.finfo(torch.float32).tiny
 
 
 @pytest.mark.cuda
