@@ -3,9 +3,11 @@
 slice of its sigma ladder; :class:`Handoff` — the Eq. 4 sigma-matched
 edge between two segments with its wire-compression choice;
 :class:`RelayProgram` — segments joined by handoffs; and the DAG IR
-(:class:`RelayGraph` → :func:`compile_plan`), copied as is.  The LM relay
-walks compiled chain plans (``serving/lm_relay.py``); executing Select and
-Merge joins over latents is not ported yet."""
+(:class:`RelayGraph` → :func:`compile_plan`) with its Eq. 1 speculation
+model (:func:`select_outcome`), copied as is.  The LM relay walks
+compiled chain plans (``serving/lm_relay.py``); the latent coordinators
+(``core/relay.py::execute_graph``, the executor's graph pipeline) walk
+every plan."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -178,9 +180,7 @@ def make_program(
 # compiler: it validates the graph, fixes a canonical topological order
 # (independent of declaration order), and precomputes everything the
 # executors and engines need — predecessor/successor edges, ready node
-# groups, and per-Select speculation metadata.  In the port the LM relay
-# (serving/lm_relay.py::execute_lm_program) walks compiled chain plans; the
-# reference's latent coordinator (core.relay.execute_graph) is not ported.
+# groups, and per-Select speculation metadata.
 # ---------------------------------------------------------------------------
 
 
@@ -586,3 +586,64 @@ def as_graph(program) -> RelayGraph:
     if isinstance(program, RelayGraph):
         return program
     return linear_graph(program)
+
+
+# --- Eq. 1 speculation model -------------------------------------------------
+#
+# A speculative handoff leaves the edge model early (at step s_spec < s); the
+# device branch refines from the early compressed latent while the edge
+# finishes the remaining steps.  Fewer edge steps inflate the Eq. 1
+# deviation (Fig. 2), and the candidate branch keeps denoising until the gate
+# verifies it, while relay trajectories contract toward the full-model
+# trajectory after a handoff (Fig. 2: deviation decays over post-handoff
+# steps).
+
+#: deviation inflation per unit (complexity × skipped-edge-step fraction)
+SPEC_GAMMA = 4.0
+#: per-device-step post-handoff contraction of the Eq. 1 deviation (Fig. 2)
+SPEC_DECAY = 0.82
+#: relative acceptance bound when Select.bound_pct is None:
+#: SPEC_BOUND_REL × the measured wire roundtrip deviation
+SPEC_BOUND_REL = 1.1
+
+
+def speculative_deviation_pct(
+    base_pct: float, gap_frac: float, verify_steps: int, complexity: float,
+) -> float:
+    """Modeled Eq. 1 deviation (percent) of a speculative handoff at
+    verification time.
+
+    ``base_pct`` is the wire's measured roundtrip deviation (the fixed
+    arm's handoff deviation), ``gap_frac`` the fraction of edge steps the
+    speculative handoff skipped, ``verify_steps`` how many device-ladder
+    steps the candidate branch has refined for by the time the gate
+    verifies it, and ``complexity`` the request's prompt complexity in
+    [0, 1).  Deterministic in its inputs, so every engine and any replay
+    agree on every accept/reject decision."""
+    growth = 1.0 + SPEC_GAMMA * complexity * gap_frac
+    return base_pct * growth * (SPEC_DECAY ** verify_steps)
+
+
+def select_bound_pct(node: GraphNode, base_pct: float) -> float:
+    """Resolve a Select node's acceptance bound: explicit ``bound_pct``,
+    else relative mode (:data:`SPEC_BOUND_REL` × the wire deviation)."""
+    if node.bound_pct is not None:
+        return float(node.bound_pct)
+    return SPEC_BOUND_REL * base_pct
+
+
+def select_outcome(plan: CompiledPlan, nid: str, complexity: float,
+                   base_pct: float) -> Tuple[bool, float, float]:
+    """Gate decision of one Select node for one request: ``(accepted,
+    deviation_pct, bound_pct)``.
+
+    ``base_pct`` is the transport's measured roundtrip deviation for the
+    program's family (percent).  The decision is a pure function of
+    ``(plan, request complexity, transport)`` — no clock, no RNG."""
+    sel = plan.selects[nid]
+    node = plan.nodes[plan.index[nid]]
+    dev = speculative_deviation_pct(
+        base_pct, sel.gap_frac, sel.verify_steps, complexity
+    )
+    bound = select_bound_pct(node, base_pct)
+    return dev <= bound, dev, bound

@@ -1,18 +1,28 @@
 """Arm executor: runs the relay programs of the arms on real latents and
 scores them with the quality oracles (port of
-``repro/serving/executor.py``, linear programs only).
+``repro/serving/executor.py``).
 
 Runs are eager.  A program's pipeline — segment functions joined by
 handoffs — is built once per program shape (family, roles, guidance,
 per-hop wire format) and reused for every arm of that shape; segment
-bounds arrive at call time.
+bounds arrive at call time.  A chain :class:`RelayGraph` normalizes to
+its linear program and shares that program's pipeline; a branching graph
+(Select and Merge joins) gets a graph pipeline built from the same
+segment functions.
 
 **Fused boundaries** (default on): compressed handoffs flow between
 segment functions as the int8 wire payload — the emitting segment's last
 step writes ``(q, s)`` (the fused emit kernel on CUDA) and the consuming
 segment's first step reads it (the fused consume kernel).  Unfused,
 a compressed hop is a standalone ``latent_roundtrip`` (the quant and
-dequant kernels on CUDA).
+dequant kernels on CUDA).  A DAG node's emit also returns the payload's
+Eq. 1 deviation, so it composes the step with the quant and dequant
+kernels (``core/boundary.py``'s accounting flavors).
+
+**Shared inputs.**  No segment function, hop or merge writes into its
+input: the initial latent and an emitted payload read by several
+consumers keep their bits (the reference donates buffers only where a
+single consumer reads them; eager PyTorch needs no donation).
 
 **Noise** is drawn on the host with ``torch.Generator`` and moved to the
 device, so a CPU run and a card run of the same seeds start from the same
@@ -26,11 +36,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import boundary, samplers
-from repro_torch.core.program import RelayProgram
+from repro_torch.core.program import (MERGE_NODE, SEGMENT_NODE, RelayGraph,
+                                      RelayProgram, compile_plan,
+                                      select_bound_pct)
+from repro_torch.core.relay import fused_emits, hop_roundtrip, merge_latents
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import synth
-from repro_torch.diffusion.families import role_fn, role_params
-from repro_torch.quantization import latent_roundtrip
+from repro_torch.diffusion.families import Family, role_fn, role_params
+from repro_torch.quantization import latent_roundtrip, relative_deviation
 from repro_torch.serving import metrics
 from repro_torch.serving.arms import ARMS, Arm
 
@@ -89,12 +102,16 @@ class Executor:
     # ------------------------------------------------------------------
 
     def _segment_fn(self, family: str, role: str, guidance: float,
-                    in_q: Optional[str] = None, out_q: Optional[str] = None):
+                    in_q: Optional[str] = None, out_q: Optional[str] = None,
+                    out_flavor: str = "wire"):
         """One segment's sampler over call-time bounds.  ``in_q`` /
         ``out_q`` name the wire quantizer of a fused boundary on the input
         / output side: with ``in_q`` the latent argument is the ``(q, s)``
         payload and the first step consumes it; with ``out_q`` the last
-        step emits the payload and the segment returns ``(q, s)``."""
+        step emits the payload.  ``out_flavor`` picks what the emit returns
+        (``boundary.EMIT_FLAVORS``): "wire" ``(q, s)``, "wire_dev" ``((q,
+        s), Eq. 1 deviation)``, "wire_dev_latent" also the stepped latent
+        (a DAG node whose other consumers read the latent)."""
         fam = self.families[family]
         net = role_fn(fam, role)
         kind = fam.spec.kind
@@ -116,17 +133,41 @@ class Executor:
                               capture_traj=False)
                 res = boundary.quant_step(
                     kind, net, params, x, sigmas, stop - 1, cond, None,
-                    guidance, quantizer=out_q, flavor="wire",
+                    guidance, quantizer=out_q, flavor=out_flavor,
                 )
-                return res["wire"]["q"], res["wire"]["s"]
+                w = (res["wire"]["q"], res["wire"]["s"])
+                if out_flavor == "wire":
+                    return w
+                if out_flavor == "wire_dev":
+                    return w, res["dev_pct"]
+                return w, res["dev_pct"], res["latent"]
             out, _ = sample(net, params, x, sigmas, cond, start=start,
                             stop=stop, guidance=guidance, capture_traj=False)
             return out
 
         return fn
 
-    def _pipeline(self, program: RelayProgram):
-        """Runner ``run(x0, cond, bounds)`` for a program's shape."""
+    def _require_mid(self, family: str, segments) -> None:
+        """Refuse a program with a mid segment on a family loaded without
+        its mid-size weights."""
+        fam = self.families[family]
+        if (isinstance(fam, Family) and not fam.has_mid
+                and any(s.model == "mid" for s in segments)):
+            raise ValueError(
+                f"family {family} has no trained mid-size stage — "
+                f"load families with with_mid=True to run cascade programs"
+            )
+
+    def _pipeline(self, program: "RelayProgram | RelayGraph"):
+        """Runner ``run(x0, cond, bounds)`` for a program's shape.  A chain
+        :class:`RelayGraph` normalizes to its linear program (sharing that
+        program's pipeline, bit for bit); a branching graph goes to
+        :meth:`_graph_pipeline`."""
+        if isinstance(program, RelayGraph):
+            plan = compile_plan(program)
+            if not plan.is_chain:
+                return self._graph_pipeline(program, plan)
+            program = plan.linear_program()
         fused = self.fused_boundary
         if fused:
             # validated per concrete program, before the shape lookup
@@ -147,13 +188,8 @@ class Executor:
         key = (program.shape_key(), bfmt)
         if key in self._pipelines:
             return self._pipelines[key]
+        self._require_mid(program.family, program.segments)
         fam = self.families[program.family]
-        if (any(s.model == "mid" for s in program.segments)
-                and getattr(fam, "mid_params", None) is None):
-            raise ValueError(
-                f"family {program.family} has no mid-size stage — load "
-                f"families with with_mid=True to run cascade programs"
-            )
 
         def _hop_q(k):  # wire quantizer of hop k when fused, else None
             hs = program.handoffs
@@ -179,6 +215,112 @@ class Executor:
         self._pipelines[key] = run
         return run
 
+    def _graph_pipeline(self, graph: RelayGraph, plan):
+        """Runner ``run(x0, cond, bounds)`` for a branching DAG plan, from
+        the same segment functions as linear programs: hop edges are wire
+        round trips with their Eq. 1 deviation, Merge nodes the k-way
+        latent average, Select nodes an eager decision over the whole
+        batch (the candidate's Eq. 1 deviation from the reference latent
+        against the node's bound)."""
+        fused = self.fused_boundary
+        # The fused-boundary analysis of the concrete plan runs before the
+        # cache lookup, so the too-few-steps check covers every plan
+        # sharing a shape.
+        fused_edges, emits = (fused_emits(plan) if fused
+                              else (frozenset(), {}))
+        emit_cfg = {nid: (q, "wire_dev_latent" if need_latent else "wire_dev")
+                    for nid, (q, need_latent) in emits.items()}
+        for n in plan.nodes:
+            consumed = any(e in fused_edges for e in plan.preds[n.nid])
+            if n.nid in emit_cfg and n.segment.steps < (2 if consumed else 1):
+                raise ValueError(
+                    f"graph node {n.nid} has too few steps to both "
+                    "consume and emit a fused boundary"
+                )
+        key = (graph.shape_key(), fused)
+        if key in self._pipelines:
+            return self._pipelines[key]
+        self._require_mid(graph.family, graph.segments)
+        fam = self.families[graph.family]
+
+        def _in_q(n):  # quantizer of a fused payload the node consumes
+            pe = plan.preds[n.nid]
+            fused_in = pe and pe[0] in fused_edges
+            return pe[0].handoff.quantizer if fused_in else None
+
+        seg_fns = {
+            n.nid: self._segment_fn(
+                graph.family, n.segment.model, n.segment.guidance,
+                in_q=_in_q(n), out_q=emit_cfg.get(n.nid, (None,))[0],
+                out_flavor=emit_cfg.get(n.nid, (None, "wire"))[1])
+            for n in plan.nodes if n.kind == SEGMENT_NODE
+        }
+
+        def run(x0, cond, bounds):
+            out, wire, path_dev = {}, {}, {}
+            for i, node in enumerate(plan.nodes):
+                pe = plan.preds[node.nid]
+                if node.kind == SEGMENT_NODE:
+                    if not pe:
+                        x_in, d_in = x0, 0.0
+                    elif pe[0] in fused_edges:
+                        # the first step reads the payload the src emitted
+                        e = pe[0]
+                        x_in, dev = wire[e.src]
+                        d_in = max(path_dev[e.src], float(dev))
+                    else:
+                        e = pe[0]
+                        x_in, d_in = out[e.src], path_dev[e.src]
+                        if e.handoff is not None and e.handoff.compress:
+                            x_in, _, dev = hop_roundtrip(
+                                x_in, e.handoff.quantizer)
+                            d_in = max(d_in, float(dev))
+                    res = seg_fns[node.nid](
+                        role_params(fam, node.segment.model), x_in, cond,
+                        *bounds[i])
+                    cfg = emit_cfg.get(node.nid)
+                    if cfg is None:
+                        out[node.nid] = res
+                    else:
+                        wire[node.nid] = (res[0], res[1])
+                        if cfg[1] == "wire_dev_latent":
+                            out[node.nid] = res[2]
+                    path_dev[node.nid] = d_in
+                elif node.kind == MERGE_NODE:
+                    out[node.nid] = merge_latents([out[e.src] for e in pe])
+                    path_dev[node.nid] = max(path_dev[e.src] for e in pe)
+                else:  # SELECT_NODE: one decision over the whole batch
+                    sel = plan.selects[node.nid]
+                    ref, cand = sel.reference, sel.candidates[0]
+                    dev_cand = float(
+                        relative_deviation(out[ref], out[cand]) * 100.0)
+                    base = path_dev[ref]
+                    bound = select_bound_pct(node, base if base > 0.0 else 1.0)
+                    winner = cand if dev_cand <= bound else ref
+                    out[node.nid] = out[winner]
+                    # the winner's own path deviation, as the reference's
+                    # pipeline keeps it (execute_graph takes the max with
+                    # dev_cand after an accept: the reference's two
+                    # coordinators differ here, and each is ported as is)
+                    path_dev[node.nid] = path_dev[winner]
+            return out[plan.sink]
+
+        self._pipelines[key] = run
+        return run
+
+    @staticmethod
+    def _bounds(program):
+        """Call-time ``(start, stop)`` per segment; for a branching graph,
+        per canonical node (``()`` at join nodes)."""
+        if isinstance(program, RelayGraph):
+            plan = compile_plan(program)
+            if not plan.is_chain:
+                return [(n.segment.start, n.segment.stop)
+                        if n.kind == SEGMENT_NODE else ()
+                        for n in plan.nodes]
+            program = plan.linear_program()
+        return [(seg.start, seg.stop) for seg in program.segments]
+
     # ------------------------------------------------------------------
     # generation
     # ------------------------------------------------------------------
@@ -200,14 +342,12 @@ class Executor:
         """Run the arm's program from initial latents ``x0`` (B, H, W, C)
         with conditioning ``cond`` (B, cond_dim); returns the final latents
         on the executor's device."""
-        prog = arm.program
-        pipeline = self._pipeline(prog)
-        bounds = [(seg.start, seg.stop) for seg in prog.segments]
+        pipeline = self._pipeline(arm.program)
         with torch.inference_mode():
             return pipeline(
                 torch.as_tensor(x0, dtype=torch.float32).to(self.device),
                 torch.as_tensor(cond, dtype=torch.float32).to(self.device),
-                bounds,
+                self._bounds(arm.program),
             )
 
     def generate(self, arm: Arm, seeds: np.ndarray) -> np.ndarray:

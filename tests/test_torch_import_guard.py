@@ -1,5 +1,6 @@
 """The port stands alone: every ``repro_torch`` module imports, and toy
-diffusion relays (F3's guided by an unconditional input), the interior
+diffusion relays (F3's guided by an unconditional input), the DAG arms
+(``execute_graph`` and the executor's graph pipeline), the interior
 step's wrapper and reduced LM relays (dense and RecurrentGemma) run on
 the CPU, in a process where ``jax`` and the reference package ``repro``
 cannot be imported; no port source imports either."""
@@ -41,6 +42,33 @@ for fam in ("XL", "F3"):
                                     fused_boundary=fused)
         assert out.shape == x.shape and torch.isfinite(out).all()
         assert info["transfer_bytes"] == 2 * 4 * 64 + 2 * 4 * 4
+
+# the DAG arms: execute_graph and the executor's graph pipeline
+from types import SimpleNamespace
+
+import numpy as np
+from repro_torch.core.program import select_outcome, compile_plan
+from repro_torch.core.relay import execute_graph
+from repro_torch.serving.arms import dag_action_space
+from repro_torch.serving.executor import Executor
+
+dag = dag_action_space()[11:]
+models["mid"] = (toy, None)
+for arm in dag:
+    spec = SPECS[arm.program.family]()
+    for fused in (False, True):
+        out, info = execute_graph(spec, arm.program, models, x, None,
+                                  fused_boundary=fused)
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        assert len(info["joins"]) == 1
+fams = {f: SimpleNamespace(spec=SPECS[f](), large_fn=toy, small_fn=toy,
+                           mid_fn=toy, large_params=None, small_params=None,
+                           mid_params=None) for f in ("XL", "F3")}
+ex = Executor(fams, arms=dag_action_space(), device="cpu")
+for arm in dag:
+    assert ex.generate_bucketed(arm, np.arange(3)).shape == (3, 8, 8, 4)
+assert select_outcome(compile_plan(dag[0].program), "select", 0.5, 0.4)[2] \
+    == 1.1 * 0.4
 
 # the interior step's kernel wrapper, and F3's guided relay through it
 from repro_torch.core.program import make_program
