@@ -5,8 +5,9 @@ card.
   python3 chip_smoke.py
 
 It drives the port's main paths — the diffusion relay executor on linear
-and DAG arms, the LM prefix relay at ``qwen3-4b`` width and the same relay
-at ``recurrentgemma-9b`` width — and holds every CUDA kernel against its
+and DAG arms, the scheduler's decision loop over the executor's quality
+table, the LM prefix relay at ``qwen3-4b`` width and the same relay at
+``recurrentgemma-9b`` width — and holds every CUDA kernel against its
 plain PyTorch version.  Phases, each failing the run (non-zero exit, no
 result line) on any mismatch:
 
@@ -132,15 +133,38 @@ result line) on any mismatch:
     (latents within ``COMPRESSED_RTOL``, equal bytes, each Select's winner,
     and its deviation and bound within ``DEV_RTOL`` relative; a Select
     within ``SELECT_TIE`` of its bound is reported as a tie); ms per request of each DAG arm beside its int8
-    twin, in turns, and the busy share of one run.
+    twin, in turns, and the busy share of one run;
+16. the scheduler, no engine: the handoff transport (``handoff_error``
+    for XL and F3 card against CPU within 1e-6, equal payload bytes, one
+    quant and one dequant launch on a first call and none cached; the
+    quality deltas; ``warm(boundary=True)`` launching the emit, consume,
+    quant and dequant kernels the number of times derived from the code
+    (``warm_launches``), ``boundary=False`` none); the Fig. 6 offline
+    protocol (``benchmarks/fig6_scheduler_comparison.py``) on the card's
+    ``quality_table`` of 64 training and 32 held-out requests over the 11
+    arms (the interior step once per F3 step), the reward from the latency
+    model and the transport's quality delta: RISE's sequential
+    select/update on the card, its state equal bit for bit to a CPU policy
+    fed the same arms and rewards and its held-out scores within
+    ``SCORE_RTOL``; PPO and SAC trained with ``train_offline`` from the same
+    weights on both devices (weights within ``WEIGHT_RTOL``, equal held-out
+    picks unless the top-2 margin is under ``MARGIN_TIE``); each policy's
+    mean held-out reward, RR and Greedy (host-only, nothing on the card to
+    check) included (a smoke reading); LinUCB alone:
+    10,000 sampled draws against softmax(s/τ) (chi-square p > 1e-3, a
+    masked arm never drawn), the forced branch exact, the 15 DAG arms with
+    a 10-dim context card against CPU bit for bit; the federation of three
+    clusters over five gossip rounds equal to ``centralized_reference`` on
+    the card bit for bit; µs per ``RisePolicy.select`` and ``update`` on
+    the card and the CPU and the device kernels per call.
 
-The phases run in the order 1-7, 11, 15, 8-10, 12-14.  Every profiled time
+The phases run in the order 1-7, 11, 15, 16, 8-10, 12-14.  Every profiled time
 comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
-over phases 3 and 15), the card's line, and last ``{"ok": true,
+over phases 3, 15 and 16), the card's line, and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -248,6 +272,18 @@ KERNEL_SYMBOLS = {"flash_attention": "flash_impl::flash_fwd",
 SELECT_TIE = 1e-4
 DEV_RTOL = 1e-5
 DAG_TURNS = 3  # phase 15's timed runs of each (DAG arm, int8 twin) pair
+# phase 16: the Fig. 6 protocol's training and held-out requests, the
+# sampled branch's draws, the timed decisions, the DAG-space steps
+SCHED_TRAIN, SCHED_HELD = 64, 32
+SCHED_DRAWS, SCHED_TIMED, SCHED_DAG_STEPS = 10_000, 1_000, 300
+# the context's load feature of each replica pool (as the reference's
+# serving/context.py::POOL_GROUPS folds them)
+POOL_FEATURE = {"vega": "vega", "sdxl": "sdxl", "ssd1b": "sdxl",
+                "sd3l": "sd3", "sd3lt": "sd3", "sd3m": "sd3"}
+# card against CPU: held-out UCB scores (relative to the largest score's
+# magnitude), PPO/SAC weights after training (norm-wise per tensor), and a
+# held-out selection whose top-2 margin is under this share is a tie
+SCORE_RTOL, WEIGHT_RTOL, MARGIN_TIE = 1e-5, 1e-4, 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -376,7 +412,8 @@ def profiled(run, calls: int = 1, counted: str = None, records: int = None,
         if complete:
             return us, averages
         print(f"profiler: {n} kernels, {us} us recorded for {calls} calls "
-              f"(session {attempt} of {attempts})", file=sys.stderr)
+              f"(session {attempt} of {attempts}): "
+              f"{ {e.key[:60]: e.count for e in averages} }", file=sys.stderr)
         time.sleep(1.0)
     raise RuntimeError("check failed: the profiler lost device records")
 
@@ -744,6 +781,21 @@ def emit_times(dev, gen, floor_ms) -> list:
     return out
 
 
+def count_launches(what: str, fn, want: dict, total: dict):
+    """``fn()`` with every kernel's launch count set to 0 just before it:
+    the launches must equal ``want``, and are added to ``total``.  Returns
+    ``fn``'s result and the launches."""
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    out = fn()
+    got = dict(build.LAUNCHES)
+    check(got == want, f"{what}: launches {got}, want {want}")
+    for k in total:
+        total[k] += got[k]
+    return out, got
+
+
 def dag_call_launches(plan, fused: bool, rf: bool) -> dict:
     """Phase 15: each kernel's launches in one call of a DAG plan, from the
     plan.  A DAG node's emit needs the payload's Eq. 1 deviation, so it is
@@ -825,7 +877,6 @@ def dag_phase(dev, seeds, served_out, linear) -> dict:
     from repro_torch.diffusion import synth
     from repro_torch.diffusion.families import (load_families, role_fn,
                                                 role_params)
-    from repro_torch.kernels import build
     from repro_torch.serving.arms import (FAMILY_POOLS, Arm,
                                           dag_action_space, relay_program,
                                           speculative_program)
@@ -868,13 +919,8 @@ def dag_phase(dev, seeds, served_out, linear) -> dict:
     total = dict.fromkeys(KERNELS, 0)
     per_call, outs = {}, {}
 
-    def counted(key, fn, want):
-        build.reset_launches()
-        out = fn()
-        got = dict(build.LAUNCHES)
-        check(got == want, f"{key}: launches {got}, want {want}")
-        for k in total:
-            total[k] += got[k]
+    def counted_call(key, fn, want):
+        out, got = count_launches(key, fn, want, total)
         per_call[key] = {k: v for k, v in got.items() if v}
         return out
 
@@ -883,8 +929,9 @@ def dag_phase(dev, seeds, served_out, linear) -> dict:
         rf = fams[arm.program.family].spec.kind == "rf"
         for fused in (True, False):
             key = arm.label + tag[fused]
-            out = counted(key, lambda: ex[fused].generate_bucketed(arm, seeds),
-                          dag_call_launches(plan, fused, rf))
+            out = counted_call(
+                key, lambda: ex[fused].generate_bucketed(arm, seeds),
+                dag_call_launches(plan, fused, rf))
             check(out.shape == (8, 8, 8, 4) and np.isfinite(out).all(),
                   f"{key}: output shape {out.shape} or non-finite values")
             outs[key] = out
@@ -897,7 +944,7 @@ def dag_phase(dev, seeds, served_out, linear) -> dict:
                 compile_plan(arm.program), True,
                 fams[arm.program.family].spec.kind == "rf").items():
             want[k] += v
-    table = counted("quality_table", lambda: ex[True].quality_table(
+    table = counted_call("quality_table", lambda: ex[True].quality_table(
         seeds, arms=dag), want)
     for arm in dag:
         for m in table[:, arm.idx]:
@@ -1111,6 +1158,422 @@ def dag_phase(dev, seeds, served_out, linear) -> dict:
           f"over the median unprofiled wall time): {json.dumps(shares)}")
     return total
 
+
+# ---- 16. the scheduler --------------------------------------------------
+
+
+def warm_launches(families, boundary: bool, cached=()) -> dict:
+    """Phase 16: each kernel's launches in one ``HandoffTransport`` call
+    on the card, derived from the code: a family's first ``handoff_error``
+    is one row-wise round trip (``quant_int8``, ``dequant_int8``), a cached
+    one launches nothing; with ``boundary``, ``boundary.warm`` fires per
+    family and sampler kind (ddim, rf) the ``"wire"`` emit (the emit
+    kernel), the ``"wire_dev"`` emit (the step, a quant and a dequant), the
+    peek (a dequant) and the consume (the consume kernel)."""
+    want = dict.fromkeys(KERNELS, 0)
+    fams = [f for f in families if f is not None]
+    for fam in fams:
+        if fam not in cached:
+            want["quant_int8"] += 1
+            want["dequant_int8"] += 1
+    if boundary:
+        kinds = 2 * len(fams)
+        want["fused_cfg_step_quant"] += kinds
+        want["quant_int8"] += kinds
+        want["dequant_int8"] += 2 * kinds
+        want["fused_cfg_step_dequant"] += kinds
+    return want
+
+
+def sched_requests(n: int, seed: int, seed0: int):
+    """``n`` requests drawn as the reference's ``serving/engine.py::
+    make_requests`` draws them (complexity, text flag, log-normal RTT,
+    battery, speed preference), prompt seeds from ``seed0``."""
+    from repro_torch.core.context import Request
+
+    rng = np.random.default_rng(seed)
+    t, out = 0.0, []
+    for i in range(n):
+        t += rng.exponential(1.0)
+        out.append(Request(
+            rid=i, arrival=t, complexity=float(rng.uniform()),
+            wants_text=bool(rng.uniform() < 0.35),
+            rtt_ms=float(rng.lognormal(np.log(80), 0.6)),
+            battery=float(rng.uniform()), pref_speed=float(rng.uniform()),
+            prompt_seed=seed0 + i))
+    return out
+
+
+def ulps(a, b) -> int:
+    a, b = (np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+            for x in (a, b))
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def transport_checks(dev, total) -> "HandoffTransport":
+    """Phase 16, the transport: ``handoff_error`` card against CPU, exact
+    launches on a first and a cached call, the quality deltas, ``warm``.
+    Adds the launches to ``total``; returns the card's transport (both
+    families measured)."""
+    from repro_torch.quantization import latent_roundtrip
+    from repro_torch.serving.runtime import HandoffTransport
+    from repro_torch.serving.runtime.transport import handoff_latent
+
+    card, cpu = HandoffTransport(device=dev), HandoffTransport(device="cpu")
+    quality = {"clip": 0.31, "ir": -0.42, "pick": 0.21, "aes": 5.2, "ocr": 0.1}
+    out = {}
+    for fam in ("XL", "F3"):
+        err, _ = count_launches(
+            f"{fam} handoff_error", lambda: card.handoff_error(fam),
+            warm_launches([fam], False), total)
+        again, _ = count_launches(
+            f"{fam} cached handoff_error", lambda: card.handoff_error(fam),
+            warm_launches([fam], False, cached=(fam,)), total)
+        ref = cpu.handoff_error(fam)
+        x = torch.from_numpy(handoff_latent(fam))
+        nbytes = [latent_roundtrip(x.to(dev))[1], latent_roundtrip(x)[1]]
+        dq, dq_cpu = (t.quality_delta(fam, quality, n_hops=2)
+                      for t in (card, cpu))
+        dev_q, dev_q_cpu = (t.deviation_quality_delta(fam, quality, 9.716)
+                            for t in (card, cpu))
+        out[fam] = {"err": [err, ref], "rel": abs(err - ref) / ref,
+                    "payload_bytes": nbytes,
+                    "clip_delta": [dq["clip"], dq_cpu["clip"]]}
+        check(again == err and abs(err - ref) <= 1e-6 * ref
+              and nbytes[0] == nbytes[1]
+              and all(abs(dq[k] - dq_cpu[k]) <= 1e-6 * abs(dq_cpu[k])
+                      for k in quality)
+              and dq["aes"] == quality["aes"] and dev_q == dev_q_cpu,
+              f"{fam}: transport card vs CPU {out[fam]}")
+    fresh = HandoffTransport(device=dev)
+    fams = ["XL", "F3", None]
+    count_launches("warm(boundary=True)",
+                   lambda: fresh.warm(fams, boundary=True),
+                   warm_launches(fams, True), total)
+    count_launches("warm(boundary=False)",
+                   lambda: fresh.warm(fams, boundary=False),
+                   warm_launches(fams, False, cached=("XL", "F3")), total)
+    print(f"transport, card vs CPU (handoff error, payload bytes of the "
+          f"representative latent, clip after a 2-hop delta): "
+          f"{json.dumps(out)}; warm(boundary=True) launches "
+          f"{json.dumps({k: v for k, v in warm_launches(fams, True).items() if v})}, "
+          f"warm(boundary=False) none")
+    return card
+
+
+def fig6_protocol(dev, ex, transport, total) -> dict:
+    """Phase 16, the Fig. 6 offline protocol
+    (``benchmarks/fig6_scheduler_comparison.py``) on the card's quality
+    table: RISE, PPO, SAC, RR and Greedy trained on ``SCHED_TRAIN``
+    requests and read on ``SCHED_HELD`` held-out ones, each learned policy
+    on the card against the same policy on the CPU.  Returns the trained
+    card RisePolicy (for the LinUCB checks)."""
+    from repro_torch.core import linucb
+    from repro_torch.core import policies as pol
+    from repro_torch.core.context import context_vector
+    from repro_torch.core.reward import RewardInputs, compute_reward
+    from repro_torch.kernels import build
+    from repro_torch.serving import latency as lat
+    from repro_torch.serving.arms import pools_used
+
+    arms = ex.arms
+    reqs = sched_requests(SCHED_TRAIN + SCHED_HELD, seed=10, seed0=50_000)
+    # the quality table on the card: one call per arm over all requests;
+    # the interior step launches on every step of each F3 arm
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_cfg_step"] = sum(
+        a.program.total_steps for a in arms
+        if ex.families[a.program.family].spec.kind == "rf")
+    t0 = time.perf_counter()
+    seeds = np.array([r.prompt_seed for r in reqs])
+    table, _ = count_launches("the scheduler's quality table",
+                              lambda: ex.quality_table(seeds), want, total)
+    table_s = time.perf_counter() - t0
+    check(all(np.isfinite(list(m.values())).all() for m in table.ravel()),
+          "non-finite quality in the scheduler's table")
+
+    rng = np.random.default_rng(0)
+    ctxs = np.stack([context_vector(r, {"vega": rng.uniform(),
+                                        "sdxl": rng.uniform(),
+                                        "sd3": rng.uniform()}) for r in reqs])
+
+    def reward_fn(i, arm):
+        a = arms[arm]
+        lb = lat.arm_latency(a, None, reqs[i].rtt_ms,
+                             compressed=transport.cfg.compress)
+        occ = {"vega": ctxs[i][5], "sdxl": ctxs[i][6], "sd3": ctxs[i][7]}
+        l_used = max(occ[POOL_FEATURE[p]] for p in pools_used(a))
+        return compute_reward(RewardInputs(
+            quality=transport.quality_delta(a.family, table[i, arm],
+                                            n_hops=a.n_hops),
+            t_total=lb.total + 8.0 * l_used, m_vram=lat.arm_vram(a),
+            l_dev=l_used, c_txt=ctxs[i][1], c_pref=ctxs[i][4],
+            c_bat=ctxs[i][3]))
+
+    train, held = ctxs[:SCHED_TRAIN], range(SCHED_TRAIN, len(reqs))
+    avail = np.ones(len(arms), bool)
+    build.reset_launches()
+
+    # RISE: sequential select/update over the training set on the card;
+    # its arms and rewards replayed into a CPU policy
+    rise = pol.RisePolicy(seed=0, device=dev)
+    rise_cpu = pol.RisePolicy(seed=0, device="cpu")
+    for i in np.random.default_rng(5).permutation(SCHED_TRAIN):
+        arm = rise.select(ctxs[i], avail)
+        r = reward_fn(i, arm)
+        rise.update(ctxs[i], arm, r)
+        rise_cpu.update(ctxs[i], arm, r)
+    state = {f: ulps(a.cpu().numpy(), b.numpy())
+             for f, a, b in zip(rise.state._fields, rise.state, rise_cpu.state)}
+    check(all(v == 0 for v in state.values()),
+          f"RISE state card vs CPU, ulps: {state}")
+    worst = 0.0
+    for i in held:
+        c = torch.from_numpy(ctxs[i])
+        a = linucb.scores(rise.state, c.to(dev), rise.p).cpu().numpy()
+        b = linucb.scores(rise_cpu.state, c, rise_cpu.p).numpy()
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    check(worst <= SCORE_RTOL, f"RISE held-out scores card vs CPU {worst}")
+
+    # PPO and SAC from the card's default weights carried to the CPU
+    nets = {"PPO": ("pi", "v"), "SAC": ("q1", "q2")}
+    learned, drift = {"RISE": rise}, {}
+    for name, cls in (("PPO", pol.PPOPolicy), ("SAC", pol.SACPolicy)):
+        card, cpu = cls(seed=0, device=dev), cls(seed=0, device="cpu")
+        for net in nets[name]:
+            getattr(cpu, net).load_state_dict(getattr(card, net).state_dict())
+        for p in (card, cpu):
+            p.train_offline(train, reward_fn, epochs=10)
+        drift[name] = max(norm_rel(a.detach().cpu(), b.detach())
+                          for net in nets[name]
+                          for a, b in zip(getattr(card, net).parameters(),
+                                          getattr(cpu, net).parameters()))
+        check(drift[name] <= WEIGHT_RTOL,
+              f"{name} weights card vs CPU {drift[name]}")
+        ties = 0
+        for i in held:
+            a, b = card.select(ctxs[i], avail), cpu.select(ctxs[i], avail)
+            v = (cpu.logits(ctxs[i][None])[0] if name == "PPO"
+                 else cpu.q_min(ctxs[i][None])[0])
+            top2 = np.sort(v)[-2:]
+            tie = top2[1] - top2[0] < MARGIN_TIE * max(abs(top2[1]), 1.0)
+            ties += int(tie)
+            check(a == b or tie, f"{name}: held-out {i} card {a} CPU {b}")
+        drift[name + "_ties"] = ties
+        learned[name] = card
+    # RR and Greedy are host-only numpy policies with nothing on the card:
+    # they join the mean-reward reading only (their picks are held to the
+    # reference in tests/test_torch_scheduler.py)
+    learned["RR"], learned["Greedy"] = pol.RoundRobinPolicy(), pol.GreedyPolicy()
+    mean = {name: float(np.mean([reward_fn(i, p.select(ctxs[i], avail))
+                                 for i in held]))
+            for name, p in learned.items()}
+    got = dict(build.LAUNCHES)
+    check(not any(got.values()), f"the policies launched kernels: {got}")
+    print(f"Fig. 6 offline protocol on the card's quality table ("
+          f"{SCHED_TRAIN} training + {SCHED_HELD} held-out requests x "
+          f"{len(arms)} arms, table {table_s:.1f} s): RISE state card vs "
+          f"CPU ulps {json.dumps(state)}, held-out scores rel {worst:.3g}; "
+          f"PPO/SAC weights rel and held-out ties {json.dumps(drift)}")
+    print(f"mean held-out reward (smoke reading, not a metric): "
+          f"{json.dumps(mean)}")
+    return rise
+
+
+def linucb_checks(dev, rise) -> None:
+    """Phase 16, LinUCB alone on the card: the sampled branch by
+    distribution, the forced branch exact, the DAG action space with the
+    telemetry context."""
+    from repro_torch.core import linucb
+    from repro_torch.core import policies as pol
+    from repro_torch.serving.arms import dag_action_space
+    from scipy import stats
+
+    # sampled: a spread temperature over the trained state's scores
+    p = dataclasses.replace(rise.p, tau0=5.0, tau_min=5.0)
+    check(bool((rise.state.counts >= p.n_min).all()), "forced arms remain")
+    k = rise.state.A.shape[0]
+    c = torch.from_numpy(np.linspace(0.1, 0.9, 8, dtype=np.float32))
+    avail = torch.ones(k, dtype=torch.bool)
+    avail[4] = False
+    s = linucb.scores(rise.state, c.to(dev), p).double().cpu().numpy()
+    tau = float(linucb._decayed(p, rise.state.counts.sum())[2])
+    z = np.where(avail.numpy(), s / tau, -np.inf)
+    prob = np.exp(z - z.max())
+    prob /= prob.sum()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cd, ad = c.to(dev), avail.to(dev)
+    hist = np.bincount([int(linucb.select(rise.state, cd, gen, p, ad))
+                        for _ in range(SCHED_DRAWS)], minlength=k)
+    keep = avail.numpy() & (prob * SCHED_DRAWS >= 5)
+    expected = prob[keep] / prob[keep].sum() * hist[keep].sum()
+    pvalue = float(stats.chisquare(hist[keep], expected).pvalue)
+    check(hist[4] == 0 and keep.sum() >= 3 and pvalue > 1e-3,
+          f"sampled branch: histogram {hist.tolist()}, p {pvalue}")
+
+    # forced: any available arm under N_min -> the least pulled, first
+    rng = np.random.default_rng(8)
+    forced = 0
+    for _ in range(200):
+        counts = rng.integers(0, 5, size=k).astype(np.float32)
+        av = rng.uniform(size=k) < 0.7
+        under = av & (counts < rise.p.n_min)
+        if not under.any():
+            continue
+        st = rise.state._replace(counts=torch.from_numpy(counts).to(dev))
+        got = int(linucb.select(st, cd, gen, rise.p,
+                                torch.from_numpy(av).to(dev)))
+        check(got == int(np.argmin(np.where(under, counts, np.inf))),
+              f"forced branch picked {got} for counts {counts}, avail {av}")
+        forced += 1
+
+    # the 15 DAG arms with the 2 telemetry features (ctx_dim 10)
+    space = dag_action_space()
+    card = pol.RisePolicy(seed=4, arms=space, ctx_dim=10, device=dev)
+    cpu = pol.RisePolicy(seed=4, arms=space, ctx_dim=10, device="cpu")
+    rng = np.random.default_rng(9)
+    theta = rng.normal(size=(len(space), 10))
+    for _ in range(SCHED_DAG_STEPS):
+        ctx = rng.random(10).astype(np.float32)
+        arm = card.select(ctx, rng.uniform(size=len(space)) < 0.8)
+        r = float(theta[arm] @ ctx)
+        card.update(ctx, arm, r)
+        cpu.update(ctx, arm, r)
+    dag_ulps = {f: ulps(a.cpu().numpy(), b.numpy())
+                for f, a, b in zip(card.state._fields, card.state, cpu.state)}
+    check(float(card.state.counts.sum()) == SCHED_DAG_STEPS
+          and not any(dag_ulps.values()),
+          f"DAG-space RISE: counts {card.state.counts.tolist()}, card vs "
+          f"CPU ulps {dag_ulps}")
+    print(f"LinUCB on the card: {SCHED_DRAWS} sampled draws against "
+          f"softmax(s/tau) (tau {tau:.3g}) chi-square p {pvalue:.3g}, the "
+          f"masked arm never drawn, histogram {hist.tolist()}; {forced} "
+          f"forced selections exact; K = {len(space)}, d = 10: "
+          f"{SCHED_DAG_STEPS} steps, counts "
+          f"{card.state.counts.int().tolist()}, card vs CPU ulps "
+          f"{json.dumps(dag_ulps)}")
+
+
+def federation_checks(dev) -> None:
+    """Phase 16, the federation on the card: three clusters, one
+    observation each per round, five rounds: the merged state equals
+    ``centralized_reference`` on the card bit for bit; a second gossip
+    with no observations is a no-op."""
+    from repro_torch.serving.fleet import (FederatedRisePolicy,
+                                           LinUCBFederation,
+                                           centralized_reference)
+
+    pols = [FederatedRisePolicy(seed=5, device=dev) for _ in range(3)]
+    fed = LinUCBFederation(pols)
+    rng = np.random.default_rng(6)
+    obs = []
+    for _ in range(5):
+        for p in pols:
+            o = (int(rng.integers(11)), rng.random(8).astype(np.float32),
+                 float(rng.normal()))
+            p.update(o[1], o[0], o[2])
+            obs.append(o)
+        merged = fed.gossip()
+    central = centralized_reference(obs, 11, 8, device=dev)
+    again = fed.gossip()
+    check(all(torch.equal(a, b) for a, b in zip(merged, central))
+          and all(torch.equal(a, b) for a, b in zip(merged, again))
+          and all(torch.equal(x, y) for p in pols
+                  for x, y in zip(p.state, merged)),
+          "the federation's merged state is not the centralized one")
+    print(f"federation on the card: 3 clusters x 5 rounds, merged == "
+          f"centralized_reference bit for bit, second gossip a no-op "
+          f"(counts {merged.counts.int().tolist()})")
+
+
+def decision_kernels() -> dict:
+    """The device kernels of one RisePolicy decision on the card, with
+    ``profiled``'s exact-count check over 20 calls, its operands already
+    on the card (the policy adds the host-to-device copies of the context,
+    and of the mask in select, and select's ``int(arm)``).  Run in a child
+    process (:func:`child_decision_kernels`): late in this script CUPTI
+    recorded 1,356 of a session's 1,360 select kernels on an H100 80GB
+    HBM3, four fewer in every attempt, while a fresh process records them
+    all."""
+    from repro_torch.core import linucb
+    from repro_torch.core import policies as pol
+
+    p = pol.RisePolicy(seed=1, device="cuda")
+    c = torch.from_numpy(np.linspace(0.1, 0.9, 8, dtype=np.float32)).to(
+        p.device)
+    mask = torch.ones(len(p.arms), dtype=torch.bool, device=p.device)
+    runs = {"select": lambda: linucb.select(p.state, c, p.generator, p.p,
+                                            mask),
+            "update": lambda: linucb.update(p.state, 1, c, 0.5, p.p)}
+    out = {}
+    for name, fn in runs.items():
+        averages = profiled(lambda: [fn() for _ in range(20)], calls=20)[1]
+        out[f"{name}_kernels"] = sum(
+            e.count for e in averages if e.self_device_time_total > 0) / 20
+    return out
+
+
+def child_decision_kernels() -> dict:
+    """:func:`decision_kernels` in a fresh Python process on the card."""
+    code = ("import json, sys; sys.path.insert(0, 'src'); import chip_smoke; "
+            "print(json.dumps(chip_smoke.decision_kernels()))")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, f"decision kernels: {run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def decision_times(dev, rise) -> dict:
+    """Phase 16, the cost of one decision: µs per ``RisePolicy.select``
+    (ending in its ``int(arm)``) and per ``update`` (on the card followed
+    by a synchronize), median of ``SCHED_TIMED`` calls by host clock, on
+    the card and on the CPU; the device kernels per call (profiler)."""
+    from repro_torch.core import policies as pol
+
+    rng = np.random.default_rng(12)
+    ctxs = rng.random((SCHED_TIMED, 8)).astype(np.float32)
+    avail = np.ones(len(rise.arms), bool)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        p = pol.RisePolicy(seed=1, device=where)
+        p.state = type(rise.state)(*(x.to(where) for x in rise.state))
+        sync = (torch.cuda.synchronize if where.type == "cuda"
+                else lambda: None)
+        sel, upd = [], []
+        for c in ctxs:
+            t0 = time.perf_counter()
+            arm = p.select(c, avail)
+            t1 = time.perf_counter()
+            p.update(c, arm, 0.5)
+            sync()
+            t2 = time.perf_counter()
+            sel.append(t1 - t0)
+            upd.append(t2 - t1)
+        out[where.type] = {"select_us": float(np.median(sel)) * 1e6,
+                           "update_us": float(np.median(upd)) * 1e6}
+        if where.type == "cuda":
+            out["cuda"].update(child_decision_kernels())
+    print(f"one RISE decision, median of {SCHED_TIMED} calls by host clock "
+          f"(the card's select includes int(arm), its update a "
+          f"synchronize): {json.dumps(out)}")
+    return out
+
+
+def scheduler_phase(dev, ex) -> dict:
+    """Phase 16: the scheduler's decision loop on the card — the
+    transport, the Fig. 6 offline protocol on ``ex``'s quality table
+    (phase 3's raw executor), LinUCB alone, the federation, the cost of a
+    decision.  Returns the phase's kernel launches."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    transport = transport_checks(dev, total)
+    rise = fig6_protocol(dev, ex, transport, total)
+    linucb_checks(dev, rise)
+    federation_checks(dev)
+    decision_times(dev, rise)
+    print(f"scheduler phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total
 
 def mixer_layers(cfg, mixer: str) -> int:
     """The number of layers of ``cfg`` whose mixer is ``mixer``."""
@@ -1874,6 +2337,11 @@ def main() -> int:
         (ex_unfused, twins, "|unfused")))
     for name in DIFFUSION_KERNELS:
         launches[name] += dag_launches[name]
+
+    # ---- 16. the scheduler, on phase 3's raw executor -------------------
+    sched_launches = scheduler_phase(dev, ex_raw)
+    for name in DIFFUSION_KERNELS:
+        launches[name] += sched_launches[name]
 
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs

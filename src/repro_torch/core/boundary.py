@@ -27,6 +27,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import samplers
+from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_sampler.ops import (fused_cfg_step_dequant,
                                                     fused_cfg_step_quant)
 from repro_torch.kernels.fused_sampler.ref import combine
@@ -138,3 +139,32 @@ def dequant_step(kind: str, fn, params, qs: dict, latent_shape, sigmas,
     coeffs = samplers.step_coeffs(kind, sigmas, i, x.device)
     return consume_fn(kind, quantizer, g)(qs["q"], qs["s"], ec, eu, coeffs,
                                           latent_shape)
+
+
+def warm(latent_shape, quantizer: str = "rowwise", device=None) -> int:
+    """Fire every fused boundary tail once for one latent shape on
+    ``device`` (the card unless the caller passes ``"cpu"``): both sampler
+    kinds, both emit accounting flavors, the wire peek and the consume
+    tail, at batch 4 and guidance 1.  Eager PyTorch compiles nothing per
+    shape, so what this warms is the kernel library, built on the first
+    launch, before the first compressed relay request needs it.  Returns
+    the number of tail calls fired, as the reference's ``warm`` does."""
+    latent_shape = tuple(latent_shape)
+    dev = resolve_device(device)
+    x = torch.zeros((4,) + latent_shape, dtype=torch.float32, device=dev)
+    eps = torch.zeros_like(x)
+    n = 0
+    for kind in ("ddim", "rf"):
+        # any valid coefficient pair fires the tail; values don't matter
+        coeffs = torch.tensor([0.5, 0.6], dtype=torch.float32, device=dev)
+        wire = None
+        for flavor in ("wire", "wire_dev"):
+            wire = emit_fn(kind, quantizer, 1.0, flavor)(
+                x, eps, eps, coeffs)["wire"]
+            n += 1
+        peek_fn(quantizer)(wire["q"], wire["s"], latent_shape)
+        n += 1
+        consume_fn(kind, quantizer, 1.0)(
+            wire["q"], wire["s"], eps, eps, coeffs, latent_shape)
+        n += 1
+    return n

@@ -140,3 +140,26 @@ def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
         put(f"layers.{cfg.n_repeats * n_pat + i}", layer)
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def linucb_state_from_jax(A, b, counts, device):
+    """The reference's ``LinUCBState`` (its fields as numpy: ``A`` (K, d,
+    d), ``b`` (K, d), ``counts`` (K,)) as the port's, fp32 on ``device``."""
+    from repro_torch.core.linucb import LinUCBState
+
+    return LinUCBState(*(torch.tensor(np.asarray(x, dtype=np.float32),
+                                      device=device) for x in (A, b, counts)))
+
+
+def mlp_params_from_jax(layers, module) -> None:
+    """Copy the reference's MLP parameters ``[{"w": (a, b), "b": (b,)},
+    ...]`` (numpy leaves) into the port's ``core/policies.py::MLP``
+    ``module`` in place.  The port's ``w[i]`` is the reference's ``"w"``
+    itself, (fan_in, fan_out), not its transpose: both compute ``x @ w +
+    b``."""
+    if len(layers) != len(module.w):
+        raise ValueError(f"{len(layers)} layers for an MLP of {len(module.w)}")
+    with torch.no_grad():
+        for layer, w, b in zip(layers, module.w, module.b):
+            w.copy_(torch.tensor(np.asarray(layer["w"], dtype=np.float32)))
+            b.copy_(torch.tensor(np.asarray(layer["b"], dtype=np.float32)))

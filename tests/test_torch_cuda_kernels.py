@@ -13,6 +13,10 @@ for bit, on the card:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
+It holds the scheduler's card-side checks too: the handoff transport's
+launches and error, LinUCB card against CPU bit for bit, the federation
+against ``centralized_reference`` bit for bit.
+
 Without a card every test skips (the kernels have no CPU build)."""
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import linucb
+from repro_torch.core.policies import RisePolicy
 from repro_torch.diffusion.families import load_families
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -39,6 +45,9 @@ from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 from repro_torch.serving.arms import build_action_space
 from repro_torch.serving.executor import Executor
+from repro_torch.serving.fleet import (FederatedRisePolicy, LinUCBFederation,
+                                       centralized_reference)
+from repro_torch.serving.runtime import HandoffTransport
 
 CKPTS = Path(__file__).resolve().parents[1] / "results" / "ckpts"
 
@@ -351,3 +360,73 @@ def test_rglru_scan_refuses_bad_operands(cuda_device):
         rglru_scan(a, a.cpu())
     with pytest.raises(ValueError, match="shape"):
         rglru_scan(a, a[:, :4])
+
+
+# ---------------------------------------------------------------------------
+# the scheduler on the card (chip_smoke.py phase 16's checks)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_handoff_transport_on_the_card(cuda_device):
+    """The round trip on the card: one quant and one dequant launch per
+    family on the first call, none on a cached one; within 1e-6 of the
+    CPU's error."""
+    card = HandoffTransport(device=cuda_device)
+    cpu = HandoffTransport(device="cpu")
+    for fam in ("XL", "F3"):
+        build.reset_launches()
+        err = card.handoff_error(fam)
+        assert build.LAUNCHES["quant_int8"] == build.LAUNCHES["dequant_int8"] == 1
+        build.reset_launches()
+        assert card.handoff_error(fam) == err
+        assert not any(build.LAUNCHES.values())
+        assert err == pytest.approx(cpu.handoff_error(fam), rel=1e-6)
+    build.reset_launches()
+    HandoffTransport(device=cuda_device).warm(["XL", None], boundary=True)
+    assert (build.LAUNCHES["fused_cfg_step_quant"]
+            == build.LAUNCHES["fused_cfg_step_dequant"] == 2)
+
+
+@pytest.mark.cuda
+def test_linucb_card_equals_cpu(cuda_device):
+    """200 updates bit for bit, scores within 1e-5 of the largest, the
+    forced branch equal."""
+    rng = np.random.default_rng(0)
+    card, cpu = (RisePolicy(seed=3, device=d) for d in (cuda_device, "cpu"))
+    for _ in range(200):
+        c = rng.random(8).astype(np.float32)
+        arm, r = int(rng.integers(11)), float(rng.normal())
+        card.update(c, arm, r)
+        cpu.update(c, arm, r)
+    for a, b in zip(card.state, cpu.state):
+        assert torch.equal(a.cpu(), b)
+    c = torch.from_numpy(rng.random(8).astype(np.float32))
+    s_card = linucb.scores(card.state, c.to(cuda_device), card.p).cpu()
+    s_cpu = linucb.scores(cpu.state, c, cpu.p)
+    assert float((s_card - s_cpu).abs().max()) <= 1e-5 * float(s_cpu.abs().max())
+    fresh = RisePolicy(seed=3, device=cuda_device)
+    counts = np.array([3, 1, 0, 2, 0, 5, 3, 3, 1, 0, 4], np.float32)
+    fresh.state = fresh.state._replace(counts=torch.from_numpy(counts)
+                                       .to(cuda_device))
+    avail = np.ones(11, bool)
+    avail[2] = False
+    assert fresh.select(np.ones(8, np.float32), avail) == 4
+
+
+@pytest.mark.cuda
+def test_federation_on_the_card(cuda_device):
+    pols = [FederatedRisePolicy(seed=5, device=cuda_device) for _ in range(3)]
+    fed = LinUCBFederation(pols)
+    rng = np.random.default_rng(6)
+    obs = []
+    for _ in range(5):
+        for p in pols:
+            o = (int(rng.integers(11)), rng.random(8).astype(np.float32),
+                 float(rng.normal()))
+            p.update(o[1], o[0], o[2])
+            obs.append(o)
+        merged = fed.gossip()
+    central = centralized_reference(obs, 11, 8, device=cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(merged, central))
+    assert all(torch.equal(a, b) for a, b in zip(merged, fed.gossip()))

@@ -1,7 +1,8 @@
 """The port stands alone: every ``repro_torch`` module imports, and toy
 diffusion relays (F3's guided by an unconditional input), the DAG arms
 (``execute_graph`` and the executor's graph pipeline), the interior
-step's wrapper and reduced LM relays (dense and RecurrentGemma) run on
+step's wrapper, reduced LM relays (dense and RecurrentGemma) and the
+scheduler (RISE, PPO, the handoff transport, one federated gossip) run on
 the CPU, in a process where ``jax`` and the reference package ``repro``
 cannot be imported; no port source imports either."""
 from __future__ import annotations
@@ -119,6 +120,26 @@ assert torch.isfinite(torch.tensor(sequence_logprob(large, rg, seq,
                                                     device="cpu")))
 a = torch.rand(2, 5, 3)
 assert rglru_scan(a, a).shape == a.shape
+
+# the scheduler: RISE selects and updates, PPO selects, the transport
+# measures a round trip, and one gossip merges two clusters
+from repro_torch.core.policies import PPOPolicy, RisePolicy
+from repro_torch.serving.fleet import FederatedRisePolicy, LinUCBFederation
+from repro_torch.serving.runtime import HandoffTransport
+
+ctx, avail = np.full(8, 0.5, np.float32), np.ones(11, bool)
+rise = RisePolicy(device="cpu")
+arm = rise.select(ctx, avail)
+rise.update(ctx, arm, 1.0)
+assert 0 <= arm < 11 and float(rise.state.counts.sum()) == 1.0
+assert 0 <= PPOPolicy(device="cpu").select(ctx, avail) < 11
+assert 0.0 < HandoffTransport(device="cpu").handoff_error("XL") < 0.02
+pols = [FederatedRisePolicy(seed=3, device="cpu") for _ in range(2)]
+fed = LinUCBFederation(pols)
+for p in pols:
+    p.update(ctx, 2, 0.5)
+merged = fed.gossip()
+assert float(merged.counts[2]) == 2.0
 print("ok", len(names))
 """
 
