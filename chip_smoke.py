@@ -85,7 +85,15 @@ result line) on any mismatch:
    calls and the scoring forward, as many times as there are layer calls,
    every decode call on the decode kernel and every scoring call on the
    scoring kernel (none on the CUDA-core one), and the handoff bytes must
-   follow the reference's formula;
+   follow the reference's formula; then the relay at s = 32 untraced and,
+   in turn, with a span tracer (``tracer=SpanTracer(), rid=7``): the
+   untraced run's tokens bit for bit and its flash launches on each
+   variant (the traced run's launches count toward the path's), request 7
+   complete with ``t_total`` = ``attributed_s()`` = 64 logical seconds,
+   segment spans ``n00`` and ``n01`` of 32 tokens, one hop of the
+   transfer bytes, the Chrome trace schema-valid (also through ``python -m
+   repro_torch.serving.obs.export`` in a child process) and the spans'
+   JSONL read back equal; ms per relay request untraced and traced;
 9. LM card against CPU on the same weights: full width, 2 layers, fp32,
    2 prompts of 16 tokens: teacher-forced logits and ``sequence_logprob``
    within 1e-5 relative, and an 8-token relay's tokens equal up to the
@@ -156,7 +164,11 @@ result line) on any mismatch:
     a 10-dim context card against CPU bit for bit; the federation of three
     clusters over five gossip rounds equal to ``centralized_reference`` on
     the card bit for bit; µs per ``RisePolicy.select`` and ``update`` on
-    the card and the CPU and the device kernels per call.
+    the card and the CPU (median, and p50/p95/max through
+    ``StreamingQuantiles``) and the device kernels per call; scheduler
+    introspection (``serving/obs/sched.py``): the ``linucb_snapshot`` of
+    the card's trained RISE equal to its CPU twin's, pulls summing to the
+    training updates, the held-out picks' regret, a JSON report.
 
 The phases run in the order 1-7, 11, 15, 16, 8-10, 12-14.  Every profiled time
 comes from a session whose kernel records are complete (see
@@ -164,18 +176,23 @@ comes from a session whose kernel records are complete (see
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
-over phases 3, 15 and 16), the card's line, and last ``{"ok": true,
+over phases 3, 15 and 16; flash attention's over phases 8, the traced
+relay included, and 12), the card's line, and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1365,11 +1382,15 @@ def fig6_protocol(dev, ex, transport, total) -> dict:
     # they join the mean-reward reading only (their picks are held to the
     # reference in tests/test_torch_scheduler.py)
     learned["RR"], learned["Greedy"] = pol.RoundRobinPolicy(), pol.GreedyPolicy()
-    mean = {name: float(np.mean([reward_fn(i, p.select(ctxs[i], avail))
-                                 for i in held]))
-            for name, p in learned.items()}
+    held_out = {}  # (request, arm, reward) of each held-out pick
+    for name, p in learned.items():
+        picks = [(i, p.select(ctxs[i], avail)) for i in held]
+        held_out[name] = [(i, a, reward_fn(i, a)) for i, a in picks]
+    mean = {name: float(np.mean([r for _, _, r in picks]))
+            for name, picks in held_out.items()}
     got = dict(build.LAUNCHES)
     check(not any(got.values()), f"the policies launched kernels: {got}")
+    sched_obs_checks(rise, rise_cpu, held_out["RISE"], arms)
     print(f"Fig. 6 offline protocol on the card's quality table ("
           f"{SCHED_TRAIN} training + {SCHED_HELD} held-out requests x "
           f"{len(arms)} arms, table {table_s:.1f} s): RISE state card vs "
@@ -1378,6 +1399,33 @@ def fig6_protocol(dev, ex, transport, total) -> dict:
     print(f"mean held-out reward (smoke reading, not a metric): "
           f"{json.dumps(mean)}")
     return rise
+
+
+def sched_obs_checks(rise, rise_cpu, held_out, arms) -> None:
+    """Phase 16, scheduler introspection on the card's RISE: the LinUCB
+    snapshot of its state (on the card) equals the CPU twin's exactly and
+    its pulls sum to the training updates; the held-out (arm, reward) pairs
+    give pulls that sum to ``SCHED_HELD`` and a regret >= 0; the report is
+    JSON-serializable."""
+    from repro_torch.serving.obs import (SchedulerIntrospection,
+                                         linucb_snapshot, scheduler_report)
+
+    snap, snap_cpu = linucb_snapshot(rise), linucb_snapshot(rise_cpu)
+    check(snap == snap_cpu and sum(snap["pulls"]) == SCHED_TRAIN,
+          f"LinUCB snapshot card vs CPU: {snap} vs {snap_cpu}")
+    records = [SimpleNamespace(rid=int(i), arm=int(a), reward=float(r))
+               for i, a, r in held_out]
+    intro = SchedulerIntrospection.from_records(records, len(arms))
+    regret = intro.cumulative_regret()
+    check(int(intro.pulls.sum()) == SCHED_HELD and regret >= 0.0,
+          f"held-out introspection: pulls {intro.pulls.tolist()}, regret "
+          f"{regret}")
+    report = json.dumps(scheduler_report(rise, records, arms))
+    print(f"RISE introspection on the card: snapshot == CPU twin's (pulls "
+          f"{snap['pulls']}, width at the unit context "
+          f"{max(snap['confidence_width_at_ctx']):.4g} max); held-out pulls "
+          f"{intro.pulls.tolist()}, best arm {intro.best_arm}, cumulative "
+          f"regret {regret:.4g}; report {len(report)} JSON bytes")
 
 
 def linucb_checks(dev, rise) -> None:
@@ -1526,14 +1574,16 @@ def child_decision_kernels() -> dict:
 def decision_times(dev, rise) -> dict:
     """Phase 16, the cost of one decision: µs per ``RisePolicy.select``
     (ending in its ``int(arm)``) and per ``update`` (on the card followed
-    by a synchronize), median of ``SCHED_TIMED`` calls by host clock, on
-    the card and on the CPU; the device kernels per call (profiler)."""
+    by a synchronize), median of ``SCHED_TIMED`` calls by host clock (and
+    p50/p95/max through ``StreamingQuantiles``), on the card and on the
+    CPU; the device kernels per call (profiler)."""
     from repro_torch.core import policies as pol
+    from repro_torch.serving.obs import StreamingQuantiles
 
     rng = np.random.default_rng(12)
     ctxs = rng.random((SCHED_TIMED, 8)).astype(np.float32)
     avail = np.ones(len(rise.arms), bool)
-    out = {}
+    out, spread = {}, {}
     for where in (dev, torch.device("cpu")):
         p = pol.RisePolicy(seed=1, device=where)
         p.state = type(rise.state)(*(x.to(where) for x in rise.state))
@@ -1551,8 +1601,17 @@ def decision_times(dev, rise) -> dict:
             upd.append(t2 - t1)
         out[where.type] = {"select_us": float(np.median(sel)) * 1e6,
                            "update_us": float(np.median(upd)) * 1e6}
+        spread[where.type] = {}
+        for name, xs in (("select", sel), ("update", upd)):
+            q = StreamingQuantiles()
+            for x in xs:
+                q.add(x * 1e6)
+            spread[where.type][name] = {k: q.summary()[k]
+                                        for k in ("p50", "p95", "max")}
         if where.type == "cuda":
             out["cuda"].update(child_decision_kernels())
+    print(f"one RISE decision, per call, µs (StreamingQuantiles over "
+          f"{SCHED_TIMED} calls): {json.dumps(spread)}")
     print(f"one RISE decision, median of {SCHED_TIMED} calls by host clock "
           f"(the card's select includes int(arm), its update a "
           f"synchronize): {json.dumps(out)}")
@@ -1678,6 +1737,87 @@ def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
     for run, (e, d, _, ms) in runs.items():
         print(f"{run:12s} {e:5d} {d:5d} {logp[run]:12.4f} {ms:9.1f}")
     return large, small, cfg_l, cfg_s, prompt, launches
+
+
+def traced_relay(large, small, cfg_l, cfg_s, prompt) -> int:
+    """Phase 8, the span tracer on the LM relay: the relay at s =
+    ``LM_SPLITS[0]`` untraced, then in turn through ``relay_decode(...,
+    tracer=, rid=7)``: the same tokens bit for bit and the same flash
+    launches on each variant (the tracer launches nothing);
+    request 7's spans tile the logical clock of one second per token; the
+    Chrome trace is schema-valid, also through the exporter's CLI in a
+    child process; the JSONL reads back to the same spans.  Returns the
+    run's flash attention launches."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.serving.lm_relay import relay_decode
+    from repro_torch.serving.obs import (SpanTracer, to_chrome_trace,
+                                         validate_chrome_trace,
+                                         write_chrome_trace,
+                                         write_spans_jsonl)
+
+    s, rid = LM_SPLITS[0], 7
+    tracer = SpanTracer()
+    runs = {}  # (tokens, ms, flash launches per variant, all launches)
+    for name, kw in (("untraced", {}), ("traced", {"tracer": tracer,
+                                                   "rid": rid})):
+        build.reset_launches()
+        flash_ops.reset_variant_launches()
+        (seq, info), ms = host_timed(functools.partial(
+            relay_decode, large, cfg_l, small, cfg_s, prompt, s, LM_TOTAL,
+            **kw))
+        runs[name] = (seq, ms, dict(flash_ops.VARIANT_LAUNCHES),
+                      dict(build.LAUNCHES))
+    seq, ms, variants, launches = runs["traced"]
+    check(torch.equal(seq, runs["untraced"][0]),
+          "the traced relay's tokens differ from the untraced run's")
+    check(variants == runs["untraced"][2]
+          and launches["flash_attention"] == sum(variants.values())
+          and not any(v for k, v in launches.items()
+                      if k != "flash_attention"),
+          f"traced relay launches {launches}, flash {variants}; untraced "
+          f"flash {runs['untraced'][2]}")
+    req = tracer.requests.get(rid)
+    check(list(tracer.requests) == [rid] and req.complete
+          and req.t_total == req.attributed_s() == float(LM_TOTAL),
+          f"request {rid}: complete {req and req.complete}, t_total "
+          f"{req and req.t_total}, attributed {req and req.attributed_s()}")
+    segs = [(sp.name, sp.meta.get("tokens")) for sp in req.spans
+            if sp.kind == "segment"]
+    hops = [sp.meta["bytes"] for sp in req.spans if sp.kind == "hop"]
+    want = LM_BATCH * (LM_PROMPT + s) * 4
+    check(segs == [("n00", s), ("n01", LM_TOTAL - s)]
+          and hops == [info["transfer_bytes"]] == [want],
+          f"segment spans {segs}, hop bytes {hops}, want {want}")
+    trace = to_chrome_trace(tracer)
+    errors = validate_chrome_trace(trace)
+    check(errors == [], f"chrome trace schema: {errors}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "lm_relay_trace.json"
+        write_chrome_trace(tracer, str(path))
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.serving.obs.export",
+             str(path)], cwd=REPO, capture_output=True, text=True,
+            timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+        check(cli.returncode == 0, f"the exporter's CLI: rc "
+              f"{cli.returncode} {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+        jsonl = Path(tmp) / "lm_relay_spans.jsonl"
+        n_lines = write_spans_jsonl(tracer, str(jsonl))
+        lines = [json.loads(x) for x in jsonl.read_text().splitlines()]
+    spans = [{k: v for k, v in x.items() if k != "type"}
+             for x in lines if x["type"] == "span"]
+    check(len(lines) == n_lines
+          and spans == [sp.as_dict() for sp in req.spans],
+          "the spans' JSONL does not read back to the spans")
+    print(f"{cfg_l.name} traced relay s={s}: tokens equal the untraced "
+          f"run's, flash launches per variant {json.dumps(variants)} as "
+          f"untraced; request {rid} t_total {req.t_total} = attributed, "
+          f"segments {segs}, hop bytes {hops}; chrome trace "
+          f"{len(trace['traceEvents'])} events schema-valid (CLI: "
+          f"{cli.stdout.strip()}), JSONL {n_lines} lines read back")
+    print(f"{cfg_l.name} relay s={s} ms per request, in turns: untraced "
+          f"{runs['untraced'][1] / LM_BATCH:.2f}, traced {ms / LM_BATCH:.2f}")
+    return launches["flash_attention"]
 
 
 def rg_check_config(cfg):
@@ -2348,6 +2488,8 @@ def main() -> int:
 
     large, small, cfg_l, cfg_s, prompt, qwen_launches = lm_main_path(
         dev, "qwen3-4b", LM_SMALL_LAYERS)
+    qwen_launches["flash_attention"] += traced_relay(
+        large, small, cfg_l, cfg_s, prompt)
     lm_card_vs_cpu(dev, prompt, cfg_l.replace(n_layers=2))
     lm_bf16_card_vs_cpu(dev, prompt, cfg_l.replace(n_layers=LM_BF16_LAYERS),
                         LM_BF16_RTOL)

@@ -46,16 +46,7 @@ from repro_torch.diffusion.families import Family, role_fn, role_params
 from repro_torch.quantization import latent_roundtrip, relative_deviation
 from repro_torch.serving import metrics
 from repro_torch.serving.arms import ARMS, Arm
-
-DEFAULT_BUCKETS = (1, 2, 4, 8)
-
-
-def bucketize(n: int, buckets=DEFAULT_BUCKETS) -> int:
-    """Smallest bucket ≥ n (n must not exceed the largest bucket)."""
-    for b in buckets:
-        if n <= b:
-            return b
-    raise ValueError(f"batch of {n} exceeds largest bucket {buckets[-1]}")
+from repro_torch.serving.runtime.batching import DEFAULT_BUCKETS, bucketize
 
 
 def sample_generator(arm_idx: int, seed: int) -> torch.Generator:

@@ -12,9 +12,13 @@ model's scoring forward through the RG-LRU scan kernel
 (``models/recurrent.py``); the decode loop carries every layer's cache,
 K/V rings and recurrent states alike, unchanged.
 
+:func:`execute_lm_program` and :func:`relay_decode` take a
+:class:`~repro_torch.serving.obs.tracer.SpanTracer`: per-node spans on a
+logical clock of one second per token, as the reference records them.
+The tracer touches no tensor and launches nothing.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``; the
-models must live on that device.  ``execute_lm_program``'s span tracer is
-not ported yet (ROADMAP queue 1, item 8): it takes ``tracer=None`` only.
+models must live on that device.
 """
 from __future__ import annotations
 
@@ -98,6 +102,7 @@ def execute_lm_program(
     prompt,
     *,
     tracer=None,
+    rid: int = 0,
     device=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Compile the plan (a :class:`RelayProgram` or a chain
@@ -105,11 +110,12 @@ def execute_lm_program(
     sequence through its canonical node order: each segment node greedily
     decodes its token slice with its role's model (re-prefilling the
     shared prefix), each handoff edge ships the prefix at 4 bytes a token.
-    Returns ``(sequence, info)`` with per-node token counts and the total
-    handoff bytes."""
-    if tracer is not None:
-        raise NotImplementedError(
-            "the span tracer is not ported: ROADMAP queue 1, item 8")
+
+    ``tracer`` gets request ``rid``'s queue/segment/hop spans on a logical
+    clock of one second per token; hops are zero-length and carry the
+    prefix's bytes, so the spans tile the request exactly.  Returns
+    ``(sequence, info)`` with per-node token counts and the total handoff
+    bytes."""
     plan = compile_plan(as_graph(program))
     if any(n.kind != SEGMENT_NODE for n in plan.nodes):
         raise ValueError("LM relay plans are segment chains — merge/select "
@@ -118,19 +124,36 @@ def execute_lm_program(
     if len(vocab) != 1:
         raise ValueError(f"shared token space required, got vocabs {vocab}")
     dev = resolve_device(device)
+    if tracer is not None:
+        tracer.start_request(rid, 0.0, -1, f"lm:{plan.graph.family}")
     seq = _tokens(prompt, dev)
+    t = 0.0
     node_tokens: Dict[str, int] = {}
     transfer_bytes = 0
-    for node in plan.nodes:
+    for ni, node in enumerate(plan.nodes):
         seg = node.segment
+        if tracer is not None:
+            tracer.enqueue(rid, node.nid, t)
+            tracer.start_segment(rid, node.nid, t, seg.pool, role=seg.model,
+                                 seg_idx=ni)
         seq = greedy_decode(models[seg.model], cfgs[seg.model], seq,
                             seg.steps, device=dev)
+        t += float(seg.steps)
         node_tokens[node.nid] = seg.steps
+        if tracer is not None:
+            tracer.end_segment(rid, t, name=node.nid, tokens=seg.steps)
         for e in plan.succs[node.nid]:
-            if e.handoff is not None:
-                # 4 bytes a token, as the reference counts, whatever the
-                # token tensor's dtype
-                transfer_bytes += int(seq.shape[0] * seq.shape[1] * 4)
+            if e.handoff is None:
+                continue
+            # 4 bytes a token, as the reference counts, whatever the token
+            # tensor's dtype
+            nbytes = int(seq.shape[0] * seq.shape[1] * 4)
+            transfer_bytes += nbytes
+            if tracer is not None:
+                tracer.hop(rid, f":{node.nid}->{e.dst}", t, t, nbytes,
+                           compressed=e.handoff.compress, pool=seg.pool)
+    if tracer is not None:
+        tracer.end_request(rid, t)
     info = {
         "node_tokens": node_tokens,
         "total_tokens": sum(node_tokens.values()),
@@ -149,18 +172,21 @@ def relay_decode(
     s: int,
     total_tokens: int,
     *,
+    tracer=None,
+    rid: int = 0,
     device=None,
 ) -> Tuple[torch.Tensor, dict]:
     """The large model decodes the first ``s`` tokens; the small model
     re-prefills the shared prefix and finishes.  Returns (sequence, info),
-    planned and run through :func:`lm_program` → :func:`execute_lm_program`."""
+    planned and run through :func:`lm_program` → :func:`execute_lm_program`
+    (``tracer`` and ``rid`` pass through)."""
     if large_cfg.vocab_size != small_cfg.vocab_size:
         raise ValueError("relay models need a shared token space")
     seq, run_info = execute_lm_program(
         lm_program(s, total_tokens),
         {"large": large, "small": small},
         {"large": large_cfg, "small": small_cfg},
-        prompt, device=device,
+        prompt, tracer=tracer, rid=rid, device=device,
     )
     info = {
         "edge_tokens": s,

@@ -1,8 +1,25 @@
-"""The relay runtime's latent handoff transport (port of
-``repro/serving/runtime/transport.py``).  The runtime's engine, batching,
-events and telemetry are not ported yet."""
+"""The relay runtime's parts (port of ``repro/serving/runtime``): the
+latent handoff transport, the discrete-event queue and work items, the
+per-pool micro-batch aggregator and the runtime telemetry.  The
+continuous-batching engine and its ``RuntimeConfig`` are not ported yet
+(ROADMAP queue 1, item 8(b))."""
+from repro_torch.serving.runtime.batching import (BatchKey,
+                                                  MicroBatchAggregator,
+                                                  batch_key_for, bucketize)
+from repro_torch.serving.runtime.events import (DEVICE, EDGE, REPLICA_FAIL,
+                                                REPLICA_RECOVER, STRAGGLER,
+                                                STRAGGLER_PARTIAL, EventQueue,
+                                                WorkItem)
+from repro_torch.serving.runtime.telemetry import (FaultCounters,
+                                                   RuntimeTelemetry)
 from repro_torch.serving.runtime.transport import (HandoffTransport,
                                                    TransportConfig,
                                                    channelwise_roundtrip)
 
-__all__ = ["HandoffTransport", "TransportConfig", "channelwise_roundtrip"]
+__all__ = [
+    "BatchKey", "MicroBatchAggregator", "batch_key_for", "bucketize",
+    "EventQueue", "WorkItem",
+    "EDGE", "DEVICE", "REPLICA_FAIL", "REPLICA_RECOVER", "STRAGGLER",
+    "STRAGGLER_PARTIAL", "FaultCounters", "RuntimeTelemetry",
+    "HandoffTransport", "TransportConfig", "channelwise_roundtrip",
+]

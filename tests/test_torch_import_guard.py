@@ -1,9 +1,11 @@
 """The port stands alone: every ``repro_torch`` module imports, and toy
 diffusion relays (F3's guided by an unconditional input), the DAG arms
 (``execute_graph`` and the executor's graph pipeline), the interior
-step's wrapper, reduced LM relays (dense and RecurrentGemma) and the
-scheduler (RISE, PPO, the handoff transport, one federated gossip) run on
-the CPU, in a process where ``jax`` and the reference package ``repro``
+step's wrapper, reduced LM relays (dense, traced and exported, and
+RecurrentGemma), the scheduler (RISE, PPO, the handoff transport, one
+federated gossip, the LinUCB snapshot) and the parts the engines stand
+on (the event queue, the aggregator, the telemetry, the serving context,
+the synthetic workload) run on the CPU, in a process where ``jax`` and the reference package ``repro``
 cannot be imported; no port source imports either."""
 from __future__ import annotations
 
@@ -102,8 +104,15 @@ large, small = (tr.init_model(cfg, torch.Generator().manual_seed(k), "cpu")
                 for k in (0, 1))
 prompt = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=3,
                                   global_batch=2)).batch(0)[0]
-seq, info = relay_decode(large, cfg, small, cfg, prompt, 2, 4, device="cpu")
+from repro_torch.serving.obs import (SpanTracer, to_chrome_trace,
+                                     validate_chrome_trace)
+
+tracer = SpanTracer()
+seq, info = relay_decode(large, cfg, small, cfg, prompt, 2, 4, tracer=tracer,
+                         rid=3, device="cpu")
 assert seq.shape == (2, 7) and info["transfer_bytes"] == 2 * (3 + 2) * 4
+assert tracer.requests[3].t_total == tracer.requests[3].attributed_s() == 4.0
+assert validate_chrome_trace(to_chrome_trace(tracer)) == []
 assert torch.isfinite(torch.tensor(sequence_logprob(large, cfg, seq,
                                                     device="cpu")))
 q = torch.randn(1, 4, 5, 16)
@@ -140,6 +149,47 @@ for p in pols:
     p.update(ctx, 2, 0.5)
 merged = fed.gossip()
 assert float(merged.counts[2]) == 2.0
+
+# the parts the engines stand on: the LinUCB snapshot, the event queue,
+# the aggregator, the telemetry export and every serving/context.py function
+from repro_torch.core.context import Request
+from repro_torch.serving import context as sctx
+from repro_torch.serving.arms import ARMS, POOL_REPLICAS
+from repro_torch.serving.obs import export_runtime_telemetry, linucb_snapshot
+from repro_torch.serving.runtime import (EventQueue, MicroBatchAggregator,
+                                         RuntimeTelemetry, WorkItem)
+from repro_torch.serving.workload import CyclePolicy, synthetic_quality_table
+
+assert sum(linucb_snapshot(rise)["pulls"]) == 1
+evq = EventQueue()
+for t, kind in ((2.0, "flush"), (1.0, "arrive"), (1.0, "batch_done")):
+    evq.push(t, kind)
+assert [evq.pop()[1] for _ in range(3)] == ["arrive", "batch_done", "flush"]
+req = Request(0, 0.0, 0.5, True, 80.0, 0.9, 0.5)
+agg = MicroBatchAggregator(ARMS[3].edge_pool)
+agg.push(WorkItem(req, 3, "edge", ARMS[3].edge_pool, 15), 0.0)
+items, bucket = agg.next_batch(1.0)
+assert [it.rid for it in items] == [0] and bucket == 1
+tel = RuntimeTelemetry()
+tel.record_batch(agg.pool, 1, bucket, 0.5, False)
+assert export_runtime_telemetry(tel)[agg.pool]["n_batches"] == 1
+cfg = SimpleNamespace(seed=1, max_queue=4, straggler_prob=0.5,
+                      straggler_factor=4.0, straggler_reissue=2.5,
+                      straggler_mode="item", pool_replicas=None,
+                      fail_replica=("vega", 0, 1.0, 2.0))
+occ = sctx.aggregate_occupancy({p: 0.5 for p in POOL_REPLICAS})
+assert occ == {"vega": 0.5, "sdxl": 0.5, "sd3": 0.5}
+assert sctx.pool_key("sd3m") == "sd3" and sctx.backlog_horizon(cfg) == 40.0
+assert sctx.pool_inventory(cfg) == POOL_REPLICAS
+assert sctx.failure_schedule(cfg) == (("vega", 0, 1.0, 2.0),)
+assert sctx.fallback_avail(ARMS, dict.fromkeys(POOL_REPLICAS, 0)).all()
+assert sctx.straggler_mode(cfg) == "item"
+assert sctx.straggler_slow(cfg, 5) in (1.0, 4.0)
+assert len(sctx.partition_stragglers(cfg, range(8))[2]) == 8
+assert sctx.context_dim(True) == 10
+assert sctx.telemetry_features(2.0, 0.5).tolist() == [1.0, 0.5]
+assert synthetic_quality_table([req]).shape == (1, 11)
+assert CyclePolicy().select(ctx, avail) == 0
 print("ok", len(names))
 """
 

@@ -7,13 +7,15 @@ Tokens are compared exactly, and each greedy choice is held to its top-2
 margin: at every decoded position the margin of the port's logits must
 exceed ten times the largest difference between the two frameworks' fp32
 logits there (the factor covers cached against teacher-forced logits), so
-equal tokens are not luck and a tie would be reported as a tie.
+equal tokens are not luck and a tie would be reported as a tie.  A
+traced relay's spans and Chrome trace JSON equal the reference's.
 ``sequence_logprob`` within 1e-5 relative.  The plan IR (``compile_plan``)
 must give the reference's node order, groups and select metadata.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -27,12 +29,16 @@ from repro.core import program as jprog
 from repro.models import transformer as jtr
 from repro.serving import lm_relay as jlr
 from repro.serving.arms import dag_action_space
+from repro.serving.obs import SpanTracer as JSpanTracer
+from repro.serving.obs import to_chrome_trace as jto_chrome_trace
 from repro.training.data import DataConfig as JDataConfig
 from repro.training.data import TokenPipeline as JTokenPipeline
 from repro_torch import configs
 from repro_torch.core import program as prog
 from repro_torch.models import transformer as tr
 from repro_torch.serving import lm_relay
+from repro_torch.serving.obs import (SpanTracer, to_chrome_trace,
+                                     validate_chrome_trace)
 from repro_torch.training.checkpoint import lm_params_from_jax
 from repro_torch.training.data import DataConfig, TokenPipeline
 
@@ -168,17 +174,40 @@ def test_lm_program_plan_equals_reference():
         lm_relay.lm_program(0, 4)
 
 
-def test_execute_lm_program_rejects_join_nodes_and_the_tracer():
+def test_execute_lm_program_rejects_join_nodes():
     ens = next(a.program for a in dag_action_space()
                if isinstance(a.program, jprog.RelayGraph)
                and any(n.kind == jprog.MERGE_NODE for n in a.program.nodes))
     with pytest.raises(ValueError, match="token-space"):
         lm_relay.execute_lm_program(_to_port(ens), {}, {},
                                     np.zeros((1, 2), np.int32), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        lm_relay.execute_lm_program(lm_relay.lm_program(1, 2), {}, {},
-                                    np.zeros((1, 2), np.int32),
-                                    tracer=object(), device="cpu")
+
+
+def test_traced_relay_equals_reference(relay):
+    """The tracer checks of the reference's
+    ``test_relay_decode_parity_with_standalone_path`` on the port: a traced
+    relay gives the untraced tokens and the reference's, the reference's
+    spans (``as_dict``) and its Chrome trace JSON; the spans tile the
+    logical clock of one second per token."""
+    tracer, ref_tracer = SpanTracer(), JSpanTracer()
+    seq, info = lm_relay.relay_decode(relay["large"], CFG, relay["small"],
+                                      CFG, relay["prompt"], S, TOTAL,
+                                      tracer=tracer, rid=7, device="cpu")
+    ref_seq, _ = jlr.relay_decode(relay["jl"], JCFG, relay["js"], JCFG,
+                                  jnp.asarray(relay["prompt"]), S, TOTAL,
+                                  tracer=ref_tracer, rid=7)
+    assert torch.equal(seq, relay["seq"]) and info == relay["info"]
+    np.testing.assert_array_equal(seq.numpy(), np.asarray(ref_seq))
+    assert [s.as_dict() for s in tracer.spans()] == \
+        [s.as_dict() for s in ref_tracer.spans()]
+    t = tracer.requests[7]
+    assert t.complete and t.t_total == t.attributed_s() == float(TOTAL)
+    assert [s.name for s in t.spans if s.kind == "segment"] == ["n00", "n01"]
+    hops = [s for s in t.spans if s.kind == "hop"]
+    assert [h.meta["bytes"] for h in hops] == [info["transfer_bytes"]]
+    trace = to_chrome_trace(tracer)
+    assert validate_chrome_trace(trace) == []
+    assert json.dumps(trace) == json.dumps(jto_chrome_trace(ref_tracer))
 
 
 def test_token_pipeline_equals_reference():
