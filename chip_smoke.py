@@ -6,10 +6,10 @@ card.
 
 It drives the port's main paths — the diffusion relay executor on linear
 and DAG arms, the scheduler's decision loop over the executor's quality
-table, the LM prefix relay at ``qwen3-4b`` width and the same relay at
-``recurrentgemma-9b`` width — and holds every CUDA kernel against its
-plain PyTorch version.  Phases, each failing the run (non-zero exit, no
-result line) on any mismatch:
+table, the sequential serving engine over that table, the LM prefix relay
+at ``qwen3-4b`` width and the same relay at ``recurrentgemma-9b`` width —
+and holds every CUDA kernel against its plain PyTorch version.  Phases,
+each failing the run (non-zero exit, no result line) on any mismatch:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel),
@@ -168,15 +168,30 @@ result line) on any mismatch:
     ``StreamingQuantiles``) and the device kernels per call; scheduler
     introspection (``serving/obs/sched.py``): the ``linucb_snapshot`` of
     the card's trained RISE equal to its CPU twin's, pulls summing to the
-    training updates, the held-out picks' regret, a JSON report.
+    training updates, the held-out picks' regret, a JSON report;
+17. the sequential serving engine (``serving/engine.py``,
+    ``runtime="sequential"``) over phase 16's 96 requests and its quality
+    table, checking only what the card computes: (a) compressed, the
+    engine with its transport on the card against the same engine with
+    ``device="cpu"``, on the 11 arms and on the 15 DAG arms with an
+    always-reject speculation (the synthetic table; Selects both accept
+    and reject): arms, ``t_total``, ``wait_s``, contexts, fault counters
+    and Select decisions exact, quality and reward within ``ENGINE_RTOL``;
+    (b) RISE on the card against RISE on the CPU by replay
+    (``ReplayPolicy``: each forced pick the CPU policy's own), the state
+    within ``RISE_ULPS``; (c) every card run's ``quant_int8`` and
+    ``dequant_int8`` launches, counted from 0 just before it, equal to one
+    round trip per family its records touch (``engine_launches``); (d) ms
+    per request with RISE and the transport on each device, in alternating
+    turns (printed, not held).
 
-The phases run in the order 1-7, 11, 15, 16, 8-10, 12-14.  Every profiled time
-comes from a session whose kernel records are complete (see
+The phases run in the order 1-7, 11, 15, 16, 17, 8-10, 12-14.  Every
+profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
-over phases 3, 15 and 16; flash attention's over phases 8, the traced
+over phases 3, 15, 16 and 17; flash attention's over phases 8, the traced
 relay included, and 12), the card's line, and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -292,15 +307,24 @@ DAG_TURNS = 3  # phase 15's timed runs of each (DAG arm, int8 twin) pair
 # phase 16: the Fig. 6 protocol's training and held-out requests, the
 # sampled branch's draws, the timed decisions, the DAG-space steps
 SCHED_TRAIN, SCHED_HELD = 64, 32
+# their stream (serving/engine.py::make_requests), which phase 17 serves
+SCHED_STREAM = dict(n_requests=SCHED_TRAIN + SCHED_HELD,
+                    mean_interarrival=1.0, seed=10)
+SCHED_SEED0 = 50_000
 SCHED_DRAWS, SCHED_TIMED, SCHED_DAG_STEPS = 10_000, 1_000, 300
-# the context's load feature of each replica pool (as the reference's
-# serving/context.py::POOL_GROUPS folds them)
-POOL_FEATURE = {"vega": "vega", "sdxl": "sdxl", "ssd1b": "sdxl",
-                "sd3l": "sd3", "sd3lt": "sd3", "sd3m": "sd3"}
 # card against CPU: held-out UCB scores (relative to the largest score's
 # magnitude), PPO/SAC weights after training (norm-wise per tensor), and a
 # held-out selection whose top-2 margin is under this share is a tie
 SCORE_RTOL, WEIGHT_RTOL, MARGIN_TIE = 1e-5, 1e-4, 1e-5
+# phase 17, card against CPU: compressed records' quality and reward within
+# ENGINE_RTOL of max(|CPU|, 1), the round trip's error differing in its
+# last bits (read 1.7e-8 on the 11 arms and 8.4e-9 on the DAG arms, H100
+# 80GB HBM3, 700 W; the bound is 6x); RISE's state after the stream within
+# RISE_ULPS, as phase 16 holds it (read 0); the engine's timed turns on
+# each device
+ENGINE_RTOL = 1e-7
+RISE_ULPS = 0
+ENGINE_TURNS = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -1202,25 +1226,6 @@ def warm_launches(families, boundary: bool, cached=()) -> dict:
     return want
 
 
-def sched_requests(n: int, seed: int, seed0: int):
-    """``n`` requests drawn as the reference's ``serving/engine.py::
-    make_requests`` draws them (complexity, text flag, log-normal RTT,
-    battery, speed preference), prompt seeds from ``seed0``."""
-    from repro_torch.core.context import Request
-
-    rng = np.random.default_rng(seed)
-    t, out = 0.0, []
-    for i in range(n):
-        t += rng.exponential(1.0)
-        out.append(Request(
-            rid=i, arrival=t, complexity=float(rng.uniform()),
-            wants_text=bool(rng.uniform() < 0.35),
-            rtt_ms=float(rng.lognormal(np.log(80), 0.6)),
-            battery=float(rng.uniform()), pref_speed=float(rng.uniform()),
-            prompt_seed=seed0 + i))
-    return out
-
-
 def ulps(a, b) -> int:
     a, b = (np.asarray(x, np.float32).view(np.int32).astype(np.int64)
             for x in (a, b))
@@ -1284,7 +1289,8 @@ def fig6_protocol(dev, ex, transport, total) -> dict:
     table: RISE, PPO, SAC, RR and Greedy trained on ``SCHED_TRAIN``
     requests and read on ``SCHED_HELD`` held-out ones, each learned policy
     on the card against the same policy on the CPU.  Returns the trained
-    card RisePolicy (for the LinUCB checks)."""
+    card RisePolicy (for the LinUCB checks), and the stream and the card's
+    quality table (for phase 17)."""
     from repro_torch.core import linucb
     from repro_torch.core import policies as pol
     from repro_torch.core.context import context_vector
@@ -1292,9 +1298,12 @@ def fig6_protocol(dev, ex, transport, total) -> dict:
     from repro_torch.kernels import build
     from repro_torch.serving import latency as lat
     from repro_torch.serving.arms import pools_used
+    from repro_torch.serving.context import pool_key
+    from repro_torch.serving.engine import SimConfig, make_requests
 
     arms = ex.arms
-    reqs = sched_requests(SCHED_TRAIN + SCHED_HELD, seed=10, seed0=50_000)
+    sim = SimConfig(**SCHED_STREAM)
+    reqs = make_requests(sim, seed0=SCHED_SEED0)
     # the quality table on the card: one call per arm over all requests;
     # the interior step launches on every step of each F3 arm
     want = dict.fromkeys(KERNELS, 0)
@@ -1319,7 +1328,7 @@ def fig6_protocol(dev, ex, transport, total) -> dict:
         lb = lat.arm_latency(a, None, reqs[i].rtt_ms,
                              compressed=transport.cfg.compress)
         occ = {"vega": ctxs[i][5], "sdxl": ctxs[i][6], "sd3": ctxs[i][7]}
-        l_used = max(occ[POOL_FEATURE[p]] for p in pools_used(a))
+        l_used = max(occ[pool_key(p)] for p in pools_used(a))
         return compute_reward(RewardInputs(
             quality=transport.quality_delta(a.family, table[i, arm],
                                             n_hops=a.n_hops),
@@ -1398,7 +1407,7 @@ def fig6_protocol(dev, ex, transport, total) -> dict:
           f"PPO/SAC weights rel and held-out ties {json.dumps(drift)}")
     print(f"mean held-out reward (smoke reading, not a metric): "
           f"{json.dumps(mean)}")
-    return rise
+    return rise, SimpleNamespace(sim=sim, reqs=reqs, table=table)
 
 
 def sched_obs_checks(rise, rise_cpu, held_out, arms) -> None:
@@ -1618,21 +1627,212 @@ def decision_times(dev, rise) -> dict:
     return out
 
 
-def scheduler_phase(dev, ex) -> dict:
+def scheduler_phase(dev, ex):
     """Phase 16: the scheduler's decision loop on the card — the
     transport, the Fig. 6 offline protocol on ``ex``'s quality table
     (phase 3's raw executor), LinUCB alone, the federation, the cost of a
-    decision.  Returns the phase's kernel launches."""
+    decision.  Returns the phase's kernel launches, and the protocol's
+    stream and quality table."""
     t0 = time.perf_counter()
     total = dict.fromkeys(KERNELS, 0)
     transport = transport_checks(dev, total)
-    rise = fig6_protocol(dev, ex, transport, total)
+    rise, stream = fig6_protocol(dev, ex, transport, total)
     linucb_checks(dev, rise)
     federation_checks(dev)
     decision_times(dev, rise)
     print(f"scheduler phase launches: {json.dumps(total)}; "
           f"{time.perf_counter() - t0:.1f} s")
+    return total, stream
+
+
+# ---- 17. the sequential serving engine -----------------------------------
+
+
+class ReplayPolicy:
+    """Phase 17: serves another run's arms in order, each checked available, and feeds every update to
+    ``inner``, a RisePolicy.  Where ``inner`` is in its forced branch (an
+    available arm pulled fewer than ``n_min`` times), the replayed arm must
+    be ``inner``'s own pick; ``forced`` counts those decisions.  Its
+    sampled picks are not compared: each device draws from its own
+    generator."""
+
+    name = "Replay"
+
+    def __init__(self, seq, inner):
+        self.seq, self.inner, self.arms = list(seq), inner, inner.arms
+        self.i = self.forced = 0
+
+    def select(self, ctx, avail):
+        arm = self.seq[self.i]
+        check(bool(avail[arm]), f"replayed arm {arm} unavailable at "
+              f"decision {self.i}")
+        counts = self.inner.state.counts.cpu().numpy()
+        mask = np.asarray(self.inner._mask(avail), bool)
+        if (mask & (counts < self.inner.p.n_min)).any():
+            own = self.inner.select(ctx, avail)
+            check(own == arm, f"forced pick {own}, replayed {arm} at "
+                  f"decision {self.i}")
+            self.forced += 1
+        self.i += 1
+        return arm
+
+    def update(self, ctx, arm, reward):
+        self.inner.update(ctx, arm, reward)
+
+
+def engine_launches(eng, recs) -> dict:
+    """Phase 17: each kernel's launches in one run of a fresh engine,
+    derived from its records: its transport measures the round trip of
+    each family that a compressed record's arm belongs to once, on its
+    first ``handoff_error`` (:func:`warm_launches`); the standalone arm
+    has no family and no handoff.  Uncompressed, nothing launches."""
+    if not eng.transport.cfg.compress:
+        return dict.fromkeys(KERNELS, 0)
+    fams = sorted({eng.arms[r.arm].family for r in recs} - {None})
+    return warm_launches(fams, False)
+
+
+def serve(what, policy, table, stream, dev, total, compress=True,
+          arms=None):
+    """Phase 17: one run of a fresh sequential engine on ``dev`` over
+    ``stream``'s requests; on the card its launches, counted from 0 just
+    before, must equal :func:`engine_launches` and are added to ``total``.
+    Returns (engine, records)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.runtime import RuntimeConfig
+
+    eng = ServingEngine(policy, table, stream.sim, runtime="sequential",
+                        runtime_cfg=RuntimeConfig() if compress else None,
+                        arms=arms, device=dev)
+    build.reset_launches()
+    recs = eng.run(stream.reqs)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+        got, want = dict(build.LAUNCHES), engine_launches(eng, recs)
+        check(got == want, f"{what}: launches {got}, want {want}")
+        for k in total:
+            total[k] += got[k]
+    check(len(recs) == stream.sim.n_requests
+          and all(np.isfinite(r.reward) and np.isfinite(r.t_total)
+                  for r in recs), f"{what}: a request lost or not finite")
+    return eng, recs
+
+
+def joins(tracer) -> list:
+    """Every DAG join's (rid, name, accepted, winner), in trace order."""
+    return [(tr.rid, s.name, s.meta.get("accepted"), s.meta.get("winner"))
+            for tr in tracer.requests.values() for s in tr.spans
+            if s.kind == "join"]
+
+
+def compressed_twins(what, card, cpu) -> float:
+    """Phase 17 (a): a compressed run with the transport on the card
+    against the same run with ``device="cpu"``, each (engine, records):
+    arms, ``t_total``, ``wait_s``, contexts, fault counters and Select
+    decisions exact, quality and reward within ``ENGINE_RTOL`` of
+    ``max(|CPU|, 1)``.  Returns the worst relative difference."""
+    (ce, cr), (pe, pr) = card, cpu
+    check(len(cr) == len(pr), f"{what}: {len(cr)} records vs {len(pr)}")
+    worst = 0.0
+    for a, b in zip(cr, pr):
+        check((a.rid, a.arm, a.t_total, a.wait_s)
+              == (b.rid, b.arm, b.t_total, b.wait_s)
+              and np.array_equal(a.ctx, b.ctx)
+              and a.quality.keys() == b.quality.keys(),
+              f"{what}: request {b.rid} card {(a.arm, a.t_total, a.wait_s)}"
+              f" CPU {(b.arm, b.t_total, b.wait_s)}")
+        for x, y in [(a.reward, b.reward)] + [(a.quality[k], b.quality[k])
+                                              for k in b.quality]:
+            worst = max(worst, abs(x - y) / max(abs(y), 1.0))
+    check(worst <= ENGINE_RTOL, f"{what}: quality/reward rel {worst}")
+    check(ce.fault_counters.as_dict() == pe.fault_counters.as_dict(),
+          f"{what}: fault counters {ce.fault_counters.as_dict()} vs "
+          f"{pe.fault_counters.as_dict()}")
+    check(joins(ce.tracer) == joins(pe.tracer),
+          f"{what}: Select decisions differ")
+    return worst
+
+
+def engine_phase(dev, stream) -> dict:
+    """Phase 17: the sequential serving engine on the card over phase 16's
+    stream and quality table, checking what the card computes: (a) the
+    transport's round trip, compressed, card against CPU, on the 11 arms
+    and on the 15 DAG arms with an always-reject speculation, both Select
+    outcomes served; (b) RISE on the card against RISE on the CPU by
+    replay; (c) each run's launches (:func:`serve`); (d) ms per request on
+    each device, in turns.  Returns the phase's kernel launches."""
+    from repro_torch.core import policies as pol
+    from repro_torch.serving.arms import (Arm, dag_action_space,
+                                          speculative_program)
+    from repro_torch.serving.workload import (CyclePolicy,
+                                              synthetic_quality_table)
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    cpu = torch.device("cpu")
+
+    # (a) the round trip's error in the records, card against CPU; the DAG
+    # space adds a speculation whose Select always rejects, so both of a
+    # Select's outcomes are served on each device
+    space = dag_action_space()
+    space += (Arm(len(space), speculative_program("XL", 20, 10,
+                                                  bound_pct=0.0),
+                  "XL@s=20|spec=10|reject"),)
+    rel = {}
+    for key, arms, qt in (
+            ("table2", None, stream.table),
+            ("dag", space, synthetic_quality_table(stream.reqs, space))):
+        what = f"compressed, {key}"
+        card, twin = (serve(what, CyclePolicy(), qt, stream, where, total,
+                            arms=arms) for where in (dev, cpu))
+        rel[key] = compressed_twins(what, card, twin)
+    selects = [acc for _, name, acc, _ in joins(card[0].tracer)
+               if name.startswith("join:select")]
+    check(set(selects) == {True, False}, f"DAG Selects {selects}: both "
+          f"outcomes must occur")
+    print(f"engine, compressed, card vs CPU ({stream.sim.n_requests} "
+          f"requests, Cycle; arms, t_total, wait_s, contexts, counters and "
+          f"Selects equal): quality/reward rel {json.dumps(rel)}; DAG "
+          f"Selects accepted {sum(selects)}, rejected "
+          f"{len(selects) - sum(selects)}")
+
+    # (b) RISE on the card; its arms replayed into RISE on the CPU
+    rise = pol.RisePolicy(seed=0, device=dev)
+    run = serve("RISE", rise, stream.table, stream, dev, total,
+                compress=False)
+    replay = ReplayPolicy([r.arm for r in run[1]],
+                          pol.RisePolicy(seed=0, device=cpu))
+    serve("RISE replay", replay, stream.table, stream, cpu, total,
+          compress=False)
+    state = {f: ulps(a.cpu().numpy(), b.numpy()) for f, a, b in
+             zip(rise.state._fields, rise.state, replay.inner.state)}
+    check(replay.i == len(run[1]) and replay.forced >= len(rise.arms),
+          f"RISE replay: {replay.i} decisions, {replay.forced} forced")
+    check(all(v <= RISE_ULPS for v in state.values()),
+          f"RISE state card vs CPU, ulps: {state}")
+    print(f"engine, RISE card vs CPU by replay ({replay.i} decisions, "
+          f"{replay.forced} forced and equal): state ulps "
+          f"{json.dumps(state)}")
+
+    # (d) the cost of the loop: RISE and the transport on each device
+    ms = {"cuda": [], "cpu": []}
+    for _ in range(ENGINE_TURNS):
+        for where in (dev, cpu):
+            t1 = time.perf_counter()
+            serve("timed", pol.RisePolicy(seed=0, device=where),
+                  stream.table, stream, where, total)
+            ms[where.type].append(
+                (time.perf_counter() - t1) * 1e3 / stream.sim.n_requests)
+    loop = {k: {"median_ms": float(np.median(v)), "turns_ms": v}
+            for k, v in ms.items()}
+    print(f"engine ms per request, compressed, RISE and the transport on "
+          f"each device ({ENGINE_TURNS} turns each, alternating): "
+          f"{json.dumps(loop)}")
+    print(f"engine phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s")
     return total
+
 
 def mixer_layers(cfg, mixer: str) -> int:
     """The number of layers of ``cfg`` whose mixer is ``mixer``."""
@@ -2479,9 +2679,14 @@ def main() -> int:
         launches[name] += dag_launches[name]
 
     # ---- 16. the scheduler, on phase 3's raw executor -------------------
-    sched_launches = scheduler_phase(dev, ex_raw)
+    sched_launches, stream = scheduler_phase(dev, ex_raw)
     for name in DIFFUSION_KERNELS:
         launches[name] += sched_launches[name]
+
+    # ---- 17. the sequential serving engine, on phase 16's table ----------
+    engine_total = engine_phase(dev, stream)
+    for name in DIFFUSION_KERNELS:
+        launches[name] += engine_total[name]
 
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs

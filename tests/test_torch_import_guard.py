@@ -3,10 +3,12 @@ diffusion relays (F3's guided by an unconditional input), the DAG arms
 (``execute_graph`` and the executor's graph pipeline), the interior
 step's wrapper, reduced LM relays (dense, traced and exported, and
 RecurrentGemma), the scheduler (RISE, PPO, the handoff transport, one
-federated gossip, the LinUCB snapshot) and the parts the engines stand
-on (the event queue, the aggregator, the telemetry, the serving context,
-the synthetic workload) run on the CPU, in a process where ``jax`` and the reference package ``repro``
-cannot be imported; no port source imports either."""
+federated gossip, the LinUCB snapshot), the parts the engines stand on
+(the event queue, the aggregator, the telemetry, the serving context, the
+synthetic workload) and the sequential serving engine (8 requests, raw
+and compressed) run on the CPU, in a process where ``jax`` and the
+reference package ``repro`` cannot be imported; no port source imports
+either."""
 from __future__ import annotations
 
 import os
@@ -190,6 +192,32 @@ assert sctx.context_dim(True) == 10
 assert sctx.telemetry_features(2.0, 0.5).tolist() == [1.0, 0.5]
 assert synthetic_quality_table([req]).shape == (1, 11)
 assert CyclePolicy().select(ctx, avail) == 0
+
+# the sequential serving engine over the synthetic table, raw and
+# compressed; the continuous runtime is not ported
+from repro_torch.serving.engine import (ServingEngine, SimConfig,
+                                        make_requests, summarize)
+from repro_torch.serving.runtime import RuntimeConfig
+
+sim = SimConfig(n_requests=8, mean_interarrival=1.0, seed=2)
+reqs = make_requests(sim)
+table = synthetic_quality_table(reqs)
+served = []
+for rc in (None, RuntimeConfig()):
+    eng = ServingEngine(CyclePolicy(), table, sim, runtime="sequential",
+                        runtime_cfg=rc, device="cpu")
+    recs = eng.run(reqs)
+    assert [r.arm for r in recs] == list(range(8))
+    assert all(np.isfinite(r.reward) and r.t_total > 0 for r in recs)
+    assert eng.tracer.coverage() == 1.0
+    served.append(summarize(recs))
+assert served[0]["arm_histogram"] == served[1]["arm_histogram"]
+assert served[1]["clip"] < served[0]["clip"]
+try:
+    ServingEngine(CyclePolicy(), table, sim, device="cpu")
+    raise AssertionError("the continuous runtime constructed")
+except NotImplementedError:
+    pass
 print("ok", len(names))
 """
 
