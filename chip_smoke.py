@@ -6,7 +6,8 @@ card.
 
 It drives the port's main paths — the diffusion relay executor on linear
 and DAG arms, the scheduler's decision loop over the executor's quality
-table, the sequential serving engine over that table, the LM prefix relay
+table, the sequential serving engine and the continuous-batching runtime
+over that table, the serving driver end to end, the LM prefix relay
 at ``qwen3-4b`` width and the same relay at ``recurrentgemma-9b`` width —
 and holds every CUDA kernel against its plain PyTorch version.  Phases,
 each failing the run (non-zero exit, no result line) on any mismatch:
@@ -180,18 +181,41 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     (b) RISE on the card against RISE on the CPU by replay
     (``ReplayPolicy``: each forced pick the CPU policy's own), the state
     within ``RISE_ULPS``; (c) every card run's ``quant_int8`` and
-    ``dequant_int8`` launches, counted from 0 just before it, equal to one
-    round trip per family its records touch (``engine_launches``); (d) ms
+    ``dequant_int8`` launches, counted from 0 just before the engine is
+    built, equal to one round trip per family its records touch
+    (``engine_launches``); (d) ms
     per request with RISE and the transport on each device, in alternating
-    turns (printed, not held).
+    turns (printed, not held);
+18. the continuous-batching runtime (``serving/runtime/engine.py``, the
+    engine's default ``runtime="continuous"``) over phase 16's 96
+    requests and its quality table, checking only what the card computes:
+    (a) compressed, the runtime with its transport on the card against
+    the same runtime with ``device="cpu"``, on the 11 arms and on the DAG
+    arms with the always-reject speculation: arms, ``t_total``,
+    ``wait_s``, contexts, fault counters and Select decisions exact (both
+    outcomes served), quality and reward within ``ENGINE_RTOL``; (b) RISE
+    on the card against RISE on the CPU by replay of its picks in decision
+    order (records equal, the state within ``RISE_ULPS``); (c) every card
+    run's ``quant_int8`` and ``dequant_int8`` launches, counted from 0
+    before the engine is built, equal to one round trip per family of the
+    action space (the runtime warms its transport before its loop;
+    ``engine_launches``); (d) ms per request in alternating turns of RISE
+    on the card, RISE on the CPU beside the card's transport, and the
+    whole engine on the CPU (printed, not held); (e) ``launch/serve.py``'s
+    ``main`` end to end on the card (``--policy rise --runtime continuous
+    --requests 32 --trace-out --profile``): 32 records, a valid trace,
+    the quality table's launches and the runtime's round trips exact
+    (``table_launches``, ``warm_launches``); the same run with ``--policy
+    rr`` on the card and with ``--device cpu`` equal in arms, latencies
+    and runtime telemetry.
 
-The phases run in the order 1-7, 11, 15, 16, 17, 8-10, 12-14.  Every
+The phases run in the order 1-7, 11, 15, 16, 17, 18, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
-over phases 3, 15, 16 and 17; flash attention's over phases 8, the traced
+over phases 3, 15, 16, 17 and 18; flash attention's over phases 8, the traced
 relay included, and 12), the card's line, and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -325,6 +349,8 @@ SCORE_RTOL, WEIGHT_RTOL, MARGIN_TIE = 1e-5, 1e-4, 1e-5
 ENGINE_RTOL = 1e-7
 RISE_ULPS = 0
 ENGINE_TURNS = 3
+# phase 18: the requests of each serving-driver run (launch/serve.py)
+CLI_REQUESTS = 32
 
 
 def check(ok: bool, what: str) -> None:
@@ -1226,6 +1252,18 @@ def warm_launches(families, boundary: bool, cached=()) -> dict:
     return want
 
 
+def table_launches(ex) -> dict:
+    """Phases 16 and 18: each kernel's launches in one ``quality_table``
+    call of ``ex`` over its raw arms: one ``generate`` per arm over all
+    requests, so the interior step launches on every step of each F3 (rf)
+    arm, and no boundary kernel runs (raw arms have no int8 hop)."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_cfg_step"] = sum(
+        a.program.total_steps for a in ex.arms
+        if ex.families[a.program.family].spec.kind == "rf")
+    return want
+
+
 def ulps(a, b) -> int:
     a, b = (np.asarray(x, np.float32).view(np.int32).astype(np.int64)
             for x in (a, b))
@@ -1304,16 +1342,11 @@ def fig6_protocol(dev, ex, transport, total) -> dict:
     arms = ex.arms
     sim = SimConfig(**SCHED_STREAM)
     reqs = make_requests(sim, seed0=SCHED_SEED0)
-    # the quality table on the card: one call per arm over all requests;
-    # the interior step launches on every step of each F3 arm
-    want = dict.fromkeys(KERNELS, 0)
-    want["fused_cfg_step"] = sum(
-        a.program.total_steps for a in arms
-        if ex.families[a.program.family].spec.kind == "rf")
     t0 = time.perf_counter()
     seeds = np.array([r.prompt_seed for r in reqs])
     table, _ = count_launches("the scheduler's quality table",
-                              lambda: ex.quality_table(seeds), want, total)
+                              lambda: ex.quality_table(seeds),
+                              table_launches(ex), total)
     table_s = time.perf_counter() - t0
     check(all(np.isfinite(list(m.values())).all() for m in table.ravel()),
           "non-finite quality in the scheduler's table")
@@ -1681,31 +1714,44 @@ class ReplayPolicy:
 
 
 def engine_launches(eng, recs) -> dict:
-    """Phase 17: each kernel's launches in one run of a fresh engine,
-    derived from its records: its transport measures the round trip of
-    each family that a compressed record's arm belongs to once, on its
-    first ``handoff_error`` (:func:`warm_launches`); the standalone arm
-    has no family and no handoff.  Uncompressed, nothing launches."""
-    if not eng.transport.cfg.compress:
+    """Phases 17 and 18: each kernel's launches in one run of a fresh
+    engine, derived from its runtime and its records.  The sequential
+    engine's transport measures the round trip of each family that a
+    compressed record's arm belongs to once, on its first
+    ``handoff_error`` (:func:`warm_launches`); the continuous runtime
+    builds its own transport and warms it on every family of its action
+    space before its loop (``_setup_arms``), whatever the records touch.
+    The standalone arm has no family and no handoff.  Uncompressed,
+    nothing launches."""
+    if eng.runtime == "continuous":
+        compress = eng.runtime_cfg.compress_handoff
+        fams = {a.family for a in eng.arms}
+    else:
+        compress = eng.transport.cfg.compress
+        fams = {eng.arms[r.arm].family for r in recs}
+    if not compress:
         return dict.fromkeys(KERNELS, 0)
-    fams = sorted({eng.arms[r.arm].family for r in recs} - {None})
-    return warm_launches(fams, False)
+    return warm_launches(sorted(fams - {None}), False)
 
 
 def serve(what, policy, table, stream, dev, total, compress=True,
-          arms=None):
-    """Phase 17: one run of a fresh sequential engine on ``dev`` over
-    ``stream``'s requests; on the card its launches, counted from 0 just
-    before, must equal :func:`engine_launches` and are added to ``total``.
+          arms=None, runtime="sequential"):
+    """Phases 17 and 18: one run of a fresh engine (``runtime``) on
+    ``dev`` over ``stream``'s requests; on the card its launches, counted
+    from 0 just before the engine is built, must equal
+    :func:`engine_launches` and are added to ``total``.  The continuous
+    runtime is given ``RuntimeConfig(compress_handoff=compress)``; the
+    sequential engine ``RuntimeConfig()`` if ``compress``, else none.
     Returns (engine, records)."""
     from repro_torch.kernels import build
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.runtime import RuntimeConfig
 
-    eng = ServingEngine(policy, table, stream.sim, runtime="sequential",
-                        runtime_cfg=RuntimeConfig() if compress else None,
-                        arms=arms, device=dev)
+    rc = (RuntimeConfig(compress_handoff=compress) if runtime == "continuous"
+          else RuntimeConfig() if compress else None)
     build.reset_launches()
+    eng = ServingEngine(policy, table, stream.sim, runtime=runtime,
+                        runtime_cfg=rc, arms=arms, device=dev)
     recs = eng.run(stream.reqs)
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
@@ -1754,6 +1800,29 @@ def compressed_twins(what, card, cpu) -> float:
     return worst
 
 
+def reject_space() -> tuple:
+    """Phases 17 and 18: the 15 DAG arms and a speculation whose Select
+    always rejects (bound 0), so that a stream under Cycle serves both of
+    a Select's outcomes."""
+    from repro_torch.serving.arms import (Arm, dag_action_space,
+                                          speculative_program)
+
+    space = dag_action_space()
+    return space + (Arm(len(space), speculative_program("XL", 20, 10,
+                                                        bound_pct=0.0),
+                        "XL@s=20|spec=10|reject"),)
+
+
+def select_outcomes(what, tracer) -> list:
+    """Each Select's accept flag in ``tracer``'s order; both outcomes
+    must occur."""
+    got = [acc for _, name, acc, _ in joins(tracer)
+           if name.startswith("join:select")]
+    check(set(got) == {True, False}, f"{what}: Selects {got}: both "
+          f"outcomes must occur")
+    return got
+
+
 def engine_phase(dev, stream) -> dict:
     """Phase 17: the sequential serving engine on the card over phase 16's
     stream and quality table, checking what the card computes: (a) the
@@ -1763,8 +1832,6 @@ def engine_phase(dev, stream) -> dict:
     replay; (c) each run's launches (:func:`serve`); (d) ms per request on
     each device, in turns.  Returns the phase's kernel launches."""
     from repro_torch.core import policies as pol
-    from repro_torch.serving.arms import (Arm, dag_action_space,
-                                          speculative_program)
     from repro_torch.serving.workload import (CyclePolicy,
                                               synthetic_quality_table)
 
@@ -1775,10 +1842,7 @@ def engine_phase(dev, stream) -> dict:
     # (a) the round trip's error in the records, card against CPU; the DAG
     # space adds a speculation whose Select always rejects, so both of a
     # Select's outcomes are served on each device
-    space = dag_action_space()
-    space += (Arm(len(space), speculative_program("XL", 20, 10,
-                                                  bound_pct=0.0),
-                  "XL@s=20|spec=10|reject"),)
+    space = reject_space()
     rel = {}
     for key, arms, qt in (
             ("table2", None, stream.table),
@@ -1787,10 +1851,7 @@ def engine_phase(dev, stream) -> dict:
         card, twin = (serve(what, CyclePolicy(), qt, stream, where, total,
                             arms=arms) for where in (dev, cpu))
         rel[key] = compressed_twins(what, card, twin)
-    selects = [acc for _, name, acc, _ in joins(card[0].tracer)
-               if name.startswith("join:select")]
-    check(set(selects) == {True, False}, f"DAG Selects {selects}: both "
-          f"outcomes must occur")
+    selects = select_outcomes("DAG", card[0].tracer)
     print(f"engine, compressed, card vs CPU ({stream.sim.n_requests} "
           f"requests, Cycle; arms, t_total, wait_s, contexts, counters and "
           f"Selects equal): quality/reward rel {json.dumps(rel)}; DAG "
@@ -1830,6 +1891,177 @@ def engine_phase(dev, stream) -> dict:
           f"each device ({ENGINE_TURNS} turns each, alternating): "
           f"{json.dumps(loop)}")
     print(f"engine phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ---- 18. the continuous-batching runtime ---------------------------------
+
+
+def recorded(policy):
+    """Wraps ``policy.select`` to keep its picks in decision order (the
+    continuous runtime returns its records in completion order).
+    Returns the list that holds them."""
+    picks, select = [], policy.select
+
+    def select_and_keep(ctx, avail):
+        picks.append(select(ctx, avail))
+        return picks[-1]
+
+    policy.select = select_and_keep
+    return picks
+
+
+def cli_run(args, dev, want=None):
+    """Phase 18 (e): ``launch/serve.py::main`` on ``dev`` over the in-repo
+    checkpoints, its printed summary kept off this script's output.  On
+    the card its launches, counted from 0 just before, must equal
+    ``want``.  Returns (summary, launches, seconds)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as cli
+
+    build.reset_launches()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = cli.main(args + ["--device", dev.type, "--ckpt-dir",
+                                   str(REPO / "results" / "ckpts")])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    got = dict(build.LAUNCHES)
+    if want is not None and dev.type == "cuda":
+        check(got == want, f"serve.py {args} on {dev.type}: launches {got}, "
+              f"want {want}")
+    return summary, got, secs
+
+
+def runtime_phase(dev, stream, ex) -> dict:
+    """Phase 18: the continuous-batching runtime
+    (``serving/runtime/engine.py::ContinuousRuntime``, the engine's
+    default) on the card over phase 16's stream and quality table,
+    checking what the card computes: (a) the transport's round trip,
+    compressed, card against CPU, on the 11 arms and on the DAG arms with
+    an always-reject speculation, both Select outcomes served; (b) RISE on
+    the card against RISE on the CPU by replay; (c) each run's launches
+    (:func:`serve`, counted from 0 before the engine is built); (d) ms per
+    request in turns; (e) ``launch/serve.py::main`` end to end.  ``ex`` is
+    phase 3's raw executor, whose families and arms the CLI loads again.
+    Returns the phase's kernel launches."""
+    from repro_torch.core import policies as pol
+    from repro_torch.serving.obs import validate_chrome_trace
+    from repro_torch.serving.workload import (CyclePolicy,
+                                              synthetic_quality_table)
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    cpu = torch.device("cpu")
+
+    # (a) compressed, the transport on the card against device="cpu"
+    space = reject_space()
+    rel = {}
+    for key, arms, qt in (
+            ("table2", None, stream.table),
+            ("dag", space, synthetic_quality_table(stream.reqs, space))):
+        what = f"continuous, compressed, {key}"
+        card, twin = (serve(what, CyclePolicy(), qt, stream, where, total,
+                            arms=arms, runtime="continuous")
+                      for where in (dev, cpu))
+        rel[key] = compressed_twins(what, card, twin)
+    selects = select_outcomes("continuous DAG", card[0].tracer)
+    batched = max(p["mean_batch_size"]
+                  for p in card[0].telemetry.summary().values())
+    print(f"continuous runtime, compressed, card vs CPU "
+          f"({stream.sim.n_requests} requests, Cycle; arms, t_total, "
+          f"wait_s, contexts, counters and Selects equal): quality/reward "
+          f"rel {json.dumps(rel)}; DAG Selects accepted {sum(selects)}, "
+          f"rejected {len(selects) - sum(selects)}; largest mean batch "
+          f"{batched:.3f}")
+
+    # (b) RISE on the card; its picks, in decision order, replayed into
+    # RISE on the CPU, whose updates then come in the runtime's order
+    rise = pol.RisePolicy(seed=0, device=dev)
+    picks = recorded(rise)
+    run = serve("continuous RISE", rise, stream.table, stream, dev, total,
+                compress=False, runtime="continuous")
+    replay = ReplayPolicy(picks, pol.RisePolicy(seed=0, device=cpu))
+    again = serve("continuous RISE replay", replay, stream.table, stream,
+                  cpu, total, compress=False, runtime="continuous")
+    check([(r.rid, r.arm, r.t_total, r.reward) for r in run[1]]
+          == [(r.rid, r.arm, r.t_total, r.reward) for r in again[1]],
+          "continuous RISE: card and replayed records differ")
+    state = {f: ulps(a.cpu().numpy(), b.numpy()) for f, a, b in
+             zip(rise.state._fields, rise.state, replay.inner.state)}
+    check(replay.i == len(picks) == stream.sim.n_requests
+          and replay.forced >= len(rise.arms),
+          f"continuous RISE replay: {replay.i} decisions, {replay.forced} "
+          f"forced")
+    check(all(v <= RISE_ULPS for v in state.values()),
+          f"continuous RISE state card vs CPU, ulps: {state}")
+    print(f"continuous runtime, RISE card vs CPU by replay ({replay.i} "
+          f"decisions, {replay.forced} forced and equal; records equal): "
+          f"state ulps {json.dumps(state)}")
+
+    # (d) the cost of the loop, compressed: RISE on the card, RISE on the
+    # CPU beside the card's transport, and the whole engine on the CPU
+    turns = {"rise_card": (dev, dev), "rise_cpu": (cpu, dev),
+             "engine_cpu": (cpu, cpu)}
+    ms = {k: [] for k in turns}
+    for _ in range(ENGINE_TURNS):
+        for key, (p_dev, e_dev) in turns.items():
+            t1 = time.perf_counter()
+            serve("timed", pol.RisePolicy(seed=0, device=p_dev),
+                  stream.table, stream, e_dev, total,
+                  runtime="continuous")
+            ms[key].append(
+                (time.perf_counter() - t1) * 1e3 / stream.sim.n_requests)
+    loop = {k: {"median_ms": float(np.median(v)), "turns_ms": v}
+            for k, v in ms.items()}
+    print(f"continuous runtime ms per request, compressed ({ENGINE_TURNS} "
+          f"turns of RISE on the card, RISE on the CPU with the card's "
+          f"transport, the engine on the CPU): {json.dumps(loop)}")
+
+    # (e) the serving driver end to end: the quality table on the card's
+    # families (one generate per raw arm), then one round trip per family
+    # as the continuous runtime warms its transport
+    want = table_launches(ex)
+    for k, v in warm_launches(sorted({a.family for a in ex.arms} - {None}),
+                              False).items():
+        want[k] += v
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        rise_args = ["--policy", "rise", "--runtime", "continuous",
+                     "--requests", str(CLI_REQUESTS), "--trace-out",
+                     str(trace), "--profile"]
+        summary, got, rise_s = cli_run(rise_args, dev, want)
+        errors = validate_chrome_trace(json.loads(trace.read_text()))
+    check(sum(summary["arm_histogram"]) == CLI_REQUESTS and errors == []
+          and summary["event_loop_profile"]["events"] > 0
+          and np.isfinite(summary["total_reward"]),
+          f"serve.py RISE: histogram {summary['arm_histogram']}, trace "
+          f"errors {errors[:3]}")
+    for k in total:
+        total[k] += got[k]
+    rr_args = ["--policy", "rr", "--runtime", "continuous", "--requests",
+               str(CLI_REQUESTS)]
+    rr_card, got, rr_s = cli_run(rr_args, dev, want)
+    for k in total:
+        total[k] += got[k]
+    rr_cpu, _, rr_cpu_s = cli_run(rr_args, cpu)
+    same = ("arm_histogram", "text_fraction", "mean_latency_s",
+            "p95_latency_s", "time_reward", "runtime_telemetry")
+    check(all(rr_card[k] == rr_cpu[k] for k in same),
+          f"serve.py RR card vs CPU: "
+          f"{[k for k in same if rr_card[k] != rr_cpu[k]]} differ")
+    print(f"serve.py on the card ({CLI_REQUESTS} requests, continuous, "
+          f"families loaded and the quality table built in each call): "
+          f"RISE {rise_s:.2f} s, histogram {summary['arm_histogram']}, "
+          f"trace valid, launches {json.dumps({k: v for k, v in want.items() if v})}; "
+          f"RR {rr_s:.2f} s, equal to the CPU's ({rr_cpu_s:.2f} s) in "
+          f"{', '.join(same)}")
+    print(f"runtime phase launches: {json.dumps(total)}; "
           f"{time.perf_counter() - t0:.1f} s")
     return total
 
@@ -2687,6 +2919,11 @@ def main() -> int:
     engine_total = engine_phase(dev, stream)
     for name in DIFFUSION_KERNELS:
         launches[name] += engine_total[name]
+
+    # ---- 18. the continuous-batching runtime, on phase 16's table -------
+    runtime_total = runtime_phase(dev, stream, ex_raw)
+    for name in DIFFUSION_KERNELS:
+        launches[name] += runtime_total[name]
 
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs

@@ -2,8 +2,9 @@
 compute identically (a copy of ``repro/serving/context.py``, numpy only).
 
 The sequential engine loop and the discrete-event continuous runtime
-(ROADMAP queue 1, item 8(b)) read three pieces of scheduler-visible state
-from here, so that they make identical arm decisions:
+(``serving/engine.py``, ``serving/runtime/engine.py``) read three pieces
+of scheduler-visible state from here, so that they make identical arm
+decisions:
 
 * :func:`aggregate_occupancy` — folding per-replica-pool occupancies into
   the context vector's three load features

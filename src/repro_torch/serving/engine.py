@@ -2,26 +2,29 @@
 ``repro/serving/engine.py``): Poisson arrivals, pool/replica queueing, arm
 filtering by availability, reward computation and online LinUCB updates.
 
-Arms are relay-program templates (``repro_torch.serving.arms``): the
-sequential loop folds each request through its program's segments,
-holding every replica pool only for the duration of its own segment — an
-N-hop cascade occupies three pools in sequence, never simultaneously.  Hop
-transfers are priced through the :class:`HandoffTransport`, so
-compressed-handoff latency (and its measured quality delta) is modeled
-when a ``RuntimeConfig`` is supplied.
+Arms are relay-program templates (``repro_torch.serving.arms``): both
+runtimes fold each request through its program's segments, holding every
+replica pool only for the duration of its own segment — an N-hop cascade
+occupies three pools in sequence, never simultaneously.  Hop transfers
+are priced through the :class:`HandoffTransport`, so compressed-handoff
+latency (and its measured quality delta) is modeled when a
+``RuntimeConfig`` is supplied.  ``runtime="continuous"`` (the default)
+serves through the discrete-event continuous-batching runtime
+(:class:`repro_torch.serving.runtime.engine.ContinuousRuntime`);
+``runtime="sequential"`` is the paper-faithful blocking loop below.
 
 Everything here is host numpy on the simulated clock: the engine reads the
 quality table and never runs a latent.  Two things touch a device: the
 policy (on the device its caller built it on) and the transport, whose
 first compressed ``handoff_error`` of a family runs one int8 round trip
 (a ``quant_int8`` and a ``dequant_int8`` launch on the card) on the
-engine's device.  Only ``runtime="sequential"`` is ported; the
-continuous-batching runtime is ROADMAP queue 1, item 8(b)2.
+engine's device.
 
 Also provides the fault-tolerance hooks: replica failure injection with
 pool failover, and straggler re-issue.  A re-issue is priced as the
-reference prices it (``latency.reissue_latency``: the straggler re-run
-alone, at its own bucket).  The port's executor pays more on the card:
+reference prices it (``latency.reissue_latency`` here; in the continuous
+runtime ``_straggler_plan``'s sub-batch at its own bucket: the straggler
+re-run alone).  The port's executor pays more on the card:
 ``Executor.generate_bucketed(subset=)`` re-runs the straggler's whole
 bucket and slices it, so that the re-run keeps its rows' bits
 (``serving/executor.py``).  At the relay's 8x8x4 latents that path is
@@ -219,8 +222,10 @@ def score_and_update(policy, arm_idx: int, ctx: np.ndarray, quality: dict,
 
 class ServingEngine:
     """Single-cluster serving front end: owns the policy, quality table and
-    SimConfig, and executes the workload on the sequential, paper-faithful
-    runtime.  Deterministic in ``cfg.seed`` — see :meth:`run`."""
+    SimConfig, and executes the workload on one of the two interchangeable
+    runtimes (continuous-batching by default, sequential as the explicit
+    paper-faithful fallback).  Deterministic in ``cfg.seed`` — see
+    :meth:`run`."""
 
     def __init__(self, policy: Policy, quality_table, cfg: SimConfig,
                  executor=None, seed0: int = 0, dynamic_reward: bool = True,
@@ -228,23 +233,29 @@ class ServingEngine:
                  arms: Optional[Sequence[Arm]] = None, device=None):
         """quality_table[i, arm] → dict of quality metrics for request i.
 
-        ``runtime="sequential"`` is the paper-faithful blocking per-request
-        loop.  ``runtime="continuous"``, the reference's default (its
-        discrete-event continuous-batching runtime), is not ported yet and
-        raises ``NotImplementedError`` (ROADMAP queue 1, item 8(b)2).
+        ``runtime="continuous"`` (the default) delegates to the
+        discrete-event continuous-batching runtime
+        (``repro_torch.serving.runtime``) with micro-batch aggregation,
+        compressed latent handoff and the full fault-injection model
+        (replica failure + straggler re-issue).  ``runtime="sequential"``
+        is the explicit fallback: the paper-faithful blocking per-request
+        loop.  Records, fault counters and ``summarize()`` are
+        interchangeable (sort records by ``rid`` to compare).
 
-        ``runtime_cfg`` (a ``RuntimeConfig``) configures the handoff
-        transport — compressed hop pricing and its quality delta; without
-        it hops are priced uncompressed (the reference's legacy
-        behavior).  Its other fields are carried and not read.
+        ``runtime_cfg`` (a ``RuntimeConfig``) configures the continuous
+        runtime (``None``: its defaults, compressed) and the sequential
+        engine's handoff transport — compressed hop pricing and its
+        quality delta; without it the sequential engine prices hops
+        uncompressed (the reference's legacy behavior) and reads none of
+        its other fields.
 
         ``arms`` swaps the action space (defaults to the paper's 11-arm
         space) — e.g. ``repro_torch.serving.arms.cascade_action_space()``.
 
-        ``device`` is the transport's: the card unless the caller passes
-        ``"cpu"`` (raises when CUDA is absent).  ``executor`` is stored and
-        not used: the engine reads ``quality_table`` instead of running a
-        latent."""
+        ``device`` is the transport's, in either runtime: the card unless
+        the caller passes ``"cpu"`` (raises when CUDA is absent).
+        ``executor`` is stored and passed on, not used: both runtimes read
+        ``quality_table`` instead of running a latent."""
         self.policy = policy
         self.qt = quality_table
         self.cfg = cfg
@@ -253,11 +264,6 @@ class ServingEngine:
         self.dynamic_reward = dynamic_reward
         if runtime not in ("sequential", "continuous"):
             raise ValueError(f"unknown runtime {runtime!r}")
-        if runtime == "continuous":
-            raise NotImplementedError(
-                "the continuous runtime is not ported yet (ROADMAP queue 1, "
-                "item 8(b)2); pass runtime=\"sequential\""
-            )
         self.runtime = runtime
         self.runtime_cfg = runtime_cfg
         self.arms = tuple(arms) if arms is not None else ARMS
@@ -276,7 +282,7 @@ class ServingEngine:
                                   device=self.device)
         )
         self.telemetry = None  # populated by the continuous runtime
-        self.tracer = SpanTracer()  # structured spans
+        self.tracer = SpanTracer()  # structured spans (both runtimes)
         self.trace = {}  # per-request phase timestamps (legacy dict view)
         self.fault_counters = FaultCounters()
 
@@ -314,12 +320,28 @@ class ServingEngine:
         return telemetry_features(qd, 1.0)
 
     def run(self, requests: List[Request]) -> List[Record]:
-        """Serve ``requests`` to completion; returns one Record each, in
-        arrival order.
+        """Serve ``requests`` to completion; returns one Record each.
 
         Fully deterministic for a given ``(cfg, requests, policy seed)``:
-        service jitter comes from ``default_rng(cfg.seed + 17)`` and
-        straggler draws are request-intrinsic."""
+        service jitter comes from ``default_rng(cfg.seed + 17)``, straggler
+        draws are request-intrinsic, and the continuous runtime's event
+        heap breaks time ties by insertion order.  Record order is
+        completion order under the continuous runtime and arrival order
+        under the sequential one — sort by ``rid`` to compare."""
+        if self.runtime == "continuous":
+            from repro_torch.serving.runtime.engine import ContinuousRuntime
+
+            rt = ContinuousRuntime(
+                self.policy, self.qt, self.cfg, self.runtime_cfg,
+                executor=self.executor, dynamic_reward=self.dynamic_reward,
+                arms=self.arms, device=self.device,
+            )
+            records = rt.run(requests)
+            self.telemetry = rt.telemetry
+            self.tracer = rt.tracer
+            self.trace = rt.trace
+            self.fault_counters = rt.fault_counters
+            return records
         pools = Pools(self.cfg)
         per_item = straggler_mode(self.cfg) == "item"  # validates the mode
         tracer = self.tracer = SpanTracer()

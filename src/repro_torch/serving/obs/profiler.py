@@ -3,9 +3,10 @@
 
 The discrete-event loop must replay ~10⁶ requests in reasonable
 wall-clock, which means knowing where the loop spends its time *before*
-vectorizing it.  This profiler hooks the continuous runtime's dispatch
-loop (the reference's ``ContinuousRuntime``; the port's engine is ROADMAP
-queue 1, item 8(b)) and measures:
+vectorizing it.  This profiler hooks the
+:class:`~repro_torch.serving.runtime.engine.ContinuousRuntime` dispatch
+loop (attach via ``RuntimeConfig(profiler=EventLoopProfiler())``) and
+measures:
 
 * events processed per kind and wall seconds per kind (perf_counter
   around each handler dispatch);

@@ -1,13 +1,14 @@
-"""The relay runtime's parts (port of ``repro/serving/runtime``): the
-latent handoff transport, the discrete-event queue and work items, the
-per-pool micro-batch aggregator, the runtime telemetry and the
-``RuntimeConfig`` that the sequential engine reads for its transport.
-The continuous-batching engine is not ported yet (ROADMAP queue 1, item
-8(b)2)."""
+"""Continuous-batching relay runtime (port of ``repro/serving/runtime``):
+discrete-event N-segment execution with micro-batch aggregation, the
+compressed latent handoff transport and fault injection (replica
+failure/failover, straggler re-issue), and the parts it stands on — the
+event queue and work items, the per-pool micro-batch aggregator and the
+runtime telemetry."""
 from repro_torch.serving.runtime.batching import (BatchKey,
                                                   MicroBatchAggregator,
                                                   batch_key_for, bucketize)
-from repro_torch.serving.runtime.engine import RuntimeConfig
+from repro_torch.serving.runtime.engine import (ContinuousRuntime,
+                                                RuntimeConfig)
 from repro_torch.serving.runtime.events import (DEVICE, EDGE, REPLICA_FAIL,
                                                 REPLICA_RECOVER, STRAGGLER,
                                                 STRAGGLER_PARTIAL, EventQueue,
@@ -20,7 +21,7 @@ from repro_torch.serving.runtime.transport import (HandoffTransport,
 
 __all__ = [
     "BatchKey", "MicroBatchAggregator", "batch_key_for", "bucketize",
-    "RuntimeConfig", "EventQueue", "WorkItem",
+    "ContinuousRuntime", "RuntimeConfig", "EventQueue", "WorkItem",
     "EDGE", "DEVICE", "REPLICA_FAIL", "REPLICA_RECOVER", "STRAGGLER",
     "STRAGGLER_PARTIAL", "FaultCounters", "RuntimeTelemetry",
     "HandoffTransport", "TransportConfig", "channelwise_roundtrip",

@@ -8,9 +8,9 @@ and dashboards.  Everything is plain Python counters — telemetry must never
 perturb the simulated clock.
 
 :class:`FaultCounters` is shared by the sequential and the continuous
-engine (ROADMAP queue 1, item 8(b)): both expose it as
-``engine.fault_counters``, and the two must agree for identical
-workloads and fault regimes.
+engine (``serving/engine.py``, ``serving/runtime/engine.py``): both
+expose it as ``engine.fault_counters``, and the two must agree for
+identical workloads and fault regimes.
 """
 from __future__ import annotations
 

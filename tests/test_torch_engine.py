@@ -33,17 +33,20 @@ Tolerances:
   in their last bits).  Read: ``A`` 1 ulp at most (after up to 31 updates
   of an arm), ``b`` 0 in all four streams.
 
-Then the reference's sequential cases (``tests/test_serving.py``,
+Then the reference's engine cases (``tests/test_serving.py``,
 ``test_event_loop_fixes.py``, ``test_runtime_properties.py``,
-``test_program_ir.py``, ``test_obs.py``, ``test_dag.py``), each written
-once over a package and run on both, their observables compared; and the
-engine's guards.
+``test_program_ir.py``, ``test_obs.py``, ``test_dag.py``), their
+sequential and their continuous halves, each written once over a package
+and run on both, their observables compared; and the engine's guards.
+The continuous runtime's own suite is ``tests/test_torch_runtime.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import tempfile
 import warnings
+from pathlib import Path
 from types import SimpleNamespace
 from unittest import mock
 
@@ -57,23 +60,27 @@ from repro.core import context as jcore_ctx
 from repro.core import policies as jpol
 from repro.core import program as jprog
 from repro.core import reward as jrew
+from repro.launch import serve as jserve
 from repro.serving import arms as jarms
 from repro.serving import context as jsctx
 from repro.serving import engine as je
 from repro.serving import latency as jlat
 from repro.serving import obs as jobs
 from repro.serving import runtime as jrt
+from repro.serving.runtime import engine as jrteng
 from repro.serving import workload as jwork
 from repro_torch.core import context as tcore_ctx
 from repro_torch.core import policies as tpol
 from repro_torch.core import program as tprog
 from repro_torch.core import reward as trew
+from repro_torch.launch import serve as tserve
 from repro_torch.serving import arms as tarms
 from repro_torch.serving import context as tsctx
 from repro_torch.serving import engine as te
 from repro_torch.serving import latency as tlat
 from repro_torch.serving import obs as tobs
 from repro_torch.serving import runtime as trt
+from repro_torch.serving.runtime import engine as trteng
 from repro_torch.serving import workload as twork
 
 torch.set_num_threads(1)
@@ -140,12 +147,12 @@ def _first_avail(base):
 # constructors take (the port's run on the card unless told otherwise)
 REF = SimpleNamespace(
     eng=je, pol=jpol, arms=jarms, work=jwork, obs=jobs, rt=jrt, sctx=jsctx,
-    lat=jlat, ctx=jcore_ctx, rew=jrew, dev={},
+    lat=jlat, ctx=jcore_ctx, rew=jrew, rteng=jrteng, serve=jserve, dev={},
     FirstAvail=_first_avail(jpol.Policy))
 PORT = SimpleNamespace(
     eng=te, pol=tpol, arms=tarms, work=twork, obs=tobs, rt=trt, sctx=tsctx,
-    lat=tlat, ctx=tcore_ctx, rew=trew, dev={"device": "cpu"},
-    FirstAvail=_first_avail(tpol.Policy))
+    lat=tlat, ctx=tcore_ctx, rew=trew, rteng=trteng, serve=tserve,
+    dev={"device": "cpu"}, FirstAvail=_first_avail(tpol.Policy))
 
 SPACES = ("table2", "cascade", "dag")
 
@@ -187,10 +194,11 @@ def _policy(P, name):
             "rr": P.pol.RoundRobinPolicy}[name]()
 
 
-def _engine(P, policy, qt, cfg, **kw):
-    """``P``'s sequential engine (the port's on the CPU)."""
-    return P.eng.ServingEngine(policy, qt, cfg, runtime="sequential",
-                               **P.dev, **kw)
+def _engine(P, policy, qt, cfg, runtime="sequential", **kw):
+    """``P``'s engine, sequential unless told otherwise (the port's on the
+    CPU)."""
+    return P.eng.ServingEngine(policy, qt, cfg, runtime=runtime, **P.dev,
+                               **kw)
 
 
 def _serve_one(P, space, sim_kw, eng_kw, policy, compress):
@@ -645,21 +653,28 @@ def case_ablation_variants_construct(P):
 
 
 def case_serve_no_compress_resolves(P):
-    """The sequential half of ``test_serve_no_compress_resolves_for_both_
-    runtimes``: the engine prices hops through its transport, which
-    follows the runtime configuration's ``compress_handoff``.  (The
-    reference case reads it through ``launch/serve.py``'s
-    ``resolve_runtime_config``, the serve half of ROADMAP item 8(b)2.)"""
+    """``test_serve_no_compress_resolves_for_both_runtimes``:
+    ``launch/serve.py``'s ``resolve_runtime_config`` sets
+    ``compress_handoff`` for either runtime, and the engine's transport
+    follows it."""
     out = []
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        for no_compress in (True, False):
-            rc = P.rt.RuntimeConfig(compress_handoff=not no_compress)
-            eng = _engine(P, P.work.CyclePolicy(), None, P.eng.SimConfig(),
-                          runtime_cfg=rc)
-            assert eng.transport.cfg.compress is (not no_compress)
-            out.append(eng.transport.cfg)
-    return {"exact": [dataclasses.asdict(c) for c in out]}
+        for runtime in ("sequential", "continuous"):
+            for no_compress in (True, False):
+                rc = P.serve.resolve_runtime_config(runtime,
+                                                    no_compress=no_compress)
+                assert rc.compress_handoff is (not no_compress)
+                assert rc.profiler is None
+                eng = _engine(P, P.work.CyclePolicy(), None,
+                              P.eng.SimConfig(), runtime=runtime,
+                              runtime_cfg=rc)
+                assert eng.transport.cfg.compress is (not no_compress)
+                out.append((dataclasses.asdict(rc),
+                            dataclasses.asdict(eng.transport.cfg)))
+        rc = P.serve.resolve_runtime_config("continuous", False, profile=True)
+        assert isinstance(rc.profiler, P.obs.EventLoopProfiler)
+    return {"exact": out}
 
 
 # tests/test_event_loop_fixes.py
@@ -876,9 +891,8 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_reference_sequential_case(case):
-    ref, port = CASES[case](REF), CASES[case](PORT)
+def _compare(case):
+    ref, port = case(REF), case(PORT)
     assert ref.keys() == port.keys()
     assert port["exact"] == ref["exact"]
     for key, tol in (("approx", COMPRESSED_RTOL),
@@ -887,6 +901,423 @@ def test_reference_sequential_case(case):
             assert len(port[key]) == len(ref[key]) > 0
             worst = max(_rel(a, b) for a, b in zip(ref[key], port[key]))
             assert worst <= tol, (key, worst)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_reference_sequential_case(case):
+    _compare(CASES[case])
+
+
+# ---------------------------------------------------------------------------
+# the continuous halves of the same reference cases (runtime="continuous",
+# compressed unless a case says otherwise: its RuntimeConfig keeps the
+# default).  Records come in completion order; the cases sort them by rid.
+# ---------------------------------------------------------------------------
+
+
+def _by_rid(recs) -> list:
+    return sorted(recs, key=lambda r: r.rid)
+
+
+def _timing(recs) -> list:
+    """(rid, arm, t_total, wait_s) of each record, by rid: what the
+    round trip's error cannot move."""
+    return [(r.rid, r.arm, r.t_total, r.wait_s) for r in _by_rid(recs)]
+
+
+def _rewards_quality(recs) -> list:
+    return [q for r in _by_rid(recs) for q in (r.reward, *r.quality.values())]
+
+
+def _profile_counts(rep) -> dict:
+    """An ``EventLoopProfiler`` report without its wall clocks."""
+    return {"events": rep["events"], "stale": rep["stale_events"],
+            "heap": rep["heap_ops"],
+            "per_type": {k: v["count"]
+                         for k, v in rep["per_event_type"].items()}}
+
+
+def _cont(P, policy, qt, cfg, **kw):
+    return _engine(P, policy, qt, cfg, runtime="continuous", **kw)
+
+
+# tests/test_event_loop_fixes.py
+
+
+def ccase_fallback_avoids_dead_pools(P):
+    cfg, reqs, qt = _dead_vega(P)
+    recs = _cont(P, P.FirstAvail(), qt, cfg).run(reqs)
+    assert len(recs) == cfg.n_requests
+    assert all(np.isfinite(r.t_total) for r in recs)
+    for r in recs:
+        assert "vega" not in P.arms.ARMS[r.arm].program.pools
+    return {"exact": _timing(recs), "approx": _rewards_quality(recs)}
+
+
+def ccase_fallback_regression_old_behavior_loses_requests(P):
+    """The monkeypatched pre-fix fallback on ``P``'s runtime module: the
+    work routed through the dead pool never finishes."""
+    cfg, reqs, qt = _dead_vega(P)
+    ones = lambda arms, alive: np.ones(len(arms), dtype=bool)
+    with mock.patch.object(P.rteng, "fallback_avail", ones):
+        recs = _cont(P, P.FirstAvail(), qt, cfg).run(reqs)
+    assert len(recs) < cfg.n_requests
+    return {"exact": _timing(recs)}
+
+
+def _bursty(P):
+    cfg = P.eng.SimConfig(n_requests=600, mean_interarrival=0.02, seed=3,
+                          straggler_prob=0.2, straggler_factor=6.0)
+    reqs = P.eng.make_requests(cfg)
+    return cfg, reqs, P.work.synthetic_quality_table(reqs)
+
+
+def _profiled_run(P, cfg, reqs, qt, **kw):
+    prof = P.obs.EventLoopProfiler()
+    eng = _cont(P, P.work.CyclePolicy(), qt, cfg,
+                runtime_cfg=P.rt.RuntimeConfig(profiler=prof, **kw))
+    return eng, eng.run(reqs), prof.report()
+
+
+def ccase_stale_flushes_are_skipped_not_handled(P):
+    cfg, reqs, qt = _bursty(P)
+    _, recs, rep = _profiled_run(P, cfg, reqs, qt)
+    n_stale = sum(rep["stale_events"].values())
+    assert rep["stale_events"].get("flush", 0) > 0
+    assert rep["heap_ops"]["pops"] - rep["events"] == n_stale
+    assert rep["events"] < rep["heap_ops"]["pops"]
+    recs0 = _cont(P, P.work.CyclePolicy(), qt, cfg).run(reqs)
+    assert [(r.rid, r.arm, r.t_total, r.wait_s) for r in recs] == \
+        [(r.rid, r.arm, r.t_total, r.wait_s) for r in recs0]
+    return {"exact": (_timing(recs), _profile_counts(rep))}
+
+
+def ccase_at_most_one_live_flush_per_pool(P):
+    cfg, reqs, qt = _bursty(P)
+    _, _, rep = _profiled_run(P, cfg, reqs, qt)
+    handled = rep["per_event_type"].get("flush", {}).get("count", 0)
+    stale = rep["stale_events"].get("flush", 0)
+    non_flush = sum(v["count"] for k, v in rep["per_event_type"].items()
+                    if k != "flush")
+    assert handled + stale == rep["heap_ops"]["pushes"] - non_flush
+    return {"exact": _profile_counts(rep)}
+
+
+# tests/test_runtime_properties.py
+
+
+def ccase_occupancy_features(P):
+    """The continuous half of ``test_occupancy_features_identical_across_
+    runtimes``: the runtime's scalar ``_occupancies`` over hand-set pools,
+    a seeded sweep of its hypothesis range."""
+    cfg = P.eng.SimConfig()
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(40):
+        busy = {p: list(rng.uniform(size=n) < 0.5)
+                for p, n in P.arms.POOL_REPLICAS.items()}
+        rt = P.rteng.ContinuousRuntime(P.work.CyclePolicy(), None, cfg,
+                                       **P.dev)
+        rt.pools = {
+            p: P.rteng._PoolState(
+                n=n, free=[i for i in range(n) if not busy[p][i]],
+                busy_until=[10.0 if busy[p][i] else 0.0 for i in range(n)],
+                agg=P.rt.MicroBatchAggregator(p))
+            for p, n in P.arms.POOL_REPLICAS.items()
+        }
+        occ = rt._occupancies(5.0)
+        expected = P.sctx.aggregate_occupancy(
+            {p: float(np.mean(flags)) for p, flags in busy.items()})
+        assert occ == pytest.approx(expected)
+        assert set(occ) == {"vega", "sdxl", "sd3"}
+        out.append(occ)
+    return {"exact": out}
+
+
+# tests/test_program_ir.py
+
+
+def ccase_linucb_decisions_identical_on_fig6_workload(P):
+    """RISE over the builder's space and the hand-rolled one, continuous:
+    equal records within the package; across packages the arms of the
+    forced prefix (the decisions before RISE's first sampled one, which
+    see only completions of earlier requests)."""
+    A = P.arms
+    legacy = [A.Arm(0, A.standalone_program("XL", "small"),
+                    "vega-standalone")]
+    for i, s in enumerate(A.RELAY_STEPS):
+        legacy.append(A.Arm(1 + i, A.relay_program("XL", s),
+                            f"sdxl+vega@s={s}"))
+    for i, s in enumerate(A.RELAY_STEPS):
+        legacy.append(A.Arm(6 + i, A.relay_program("F3", s),
+                            f"sd35L+M@s={s}"))
+    cfg = P.eng.SimConfig(n_requests=80, mean_interarrival=2.0, seed=10)
+    reqs = P.eng.make_requests(cfg, seed0=50_000)
+    runs, forced = {}, None
+    for name, arms in (("builder", A.build_action_space()),
+                       ("handrolled", tuple(legacy))):
+        qt = P.work.synthetic_quality_table(reqs, arms=arms)
+        policy = _rise(P, arms=arms)
+        prefix = _watch_forced(policy)
+        recs = _cont(P, policy, qt, cfg, arms=arms).run(reqs)
+        runs[name] = {r.rid: r for r in recs}
+        assert prefix[0] >= 3 * len(arms)
+        forced = [r.arm for r in _by_rid(recs)[:prefix[0]]]
+    a, b = runs["builder"], runs["handrolled"]
+    assert sorted(a) == sorted(b)
+    for rid in a:
+        assert a[rid].arm == b[rid].arm
+        assert a[rid].reward == b[rid].reward
+        assert a[rid].quality == b[rid].quality
+        assert a[rid].t_total == b[rid].t_total
+    return {"exact": forced}
+
+
+# tests/test_obs.py
+
+
+def _ctraced(P, n=40, trace=True, profiler=None, **sim_kw):
+    cfg = P.eng.SimConfig(n_requests=n, mean_interarrival=1.5, seed=9,
+                          **sim_kw)
+    reqs = P.eng.make_requests(cfg)
+    qt = P.work.synthetic_quality_table(reqs)
+    eng = _cont(P, P.work.CyclePolicy(), qt, cfg,
+                runtime_cfg=P.rt.RuntimeConfig(profiler=profiler,
+                                               trace=trace))
+    return eng, _by_rid(eng.run(reqs))
+
+
+def ccase_tracer_spans_tile_lifetime(P):
+    eng, recs = _ctraced(P, straggler_prob=0.25, straggler_factor=6.0)
+    assert eng.tracer.coverage() == 1.0
+    assert P.obs.attribution_residual(eng.tracer) < 1e-6
+    for r in recs:
+        assert eng.tracer.requests[r.rid].t_total == \
+            pytest.approx(r.t_total, abs=1e-6)
+    return {"exact": (_timing(recs), eng.trace),
+            "approx": _rewards_quality(recs)}
+
+
+def ccase_tracing_off_is_bit_identical(P):
+    kw = dict(straggler_prob=0.3, straggler_factor=8.0)
+    eng_on, on = _ctraced(P, trace=True, **kw)
+    eng_off, off = _ctraced(P, trace=False, **kw)
+    assert [r.arm for r in on] == [r.arm for r in off]
+    assert [r.t_total for r in on] == [r.t_total for r in off]
+    assert [r.reward for r in on] == [r.reward for r in off]
+    assert eng_on.fault_counters.as_dict() == eng_off.fault_counters.as_dict()
+    assert len(eng_on.tracer) > 0 and len(eng_off.tracer) == 0
+    return {"exact": (_timing(on), eng_on.fault_counters.as_dict()),
+            "approx": _rewards_quality(on)}
+
+
+def ccase_chrome_trace_schema_and_flows(P):
+    eng, _ = _ctraced(P, straggler_prob=0.25, straggler_factor=6.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "t.json"
+        trace = P.obs.write_chrome_trace(eng.tracer, str(path),
+                                         meta={"k": "v"})
+        on_disk = json.loads(path.read_text())
+    assert P.obs.validate_chrome_trace(trace) == []
+    assert P.obs.validate_chrome_trace(on_disk) == []
+    assert trace["otherData"] == {"k": "v"}
+    evs = trace["traceEvents"]
+    assert {"M", "X", "s", "f", "i"} <= {e["ph"] for e in evs}
+    for fid in {e["id"] for e in evs if e["ph"] in ("s", "t", "f")}:
+        assert sum(1 for e in evs if e.get("id") == fid
+                   and e["ph"] == "s") == 1
+        assert sum(1 for e in evs if e.get("id") == fid
+                   and e["ph"] == "f") == 1
+    return {"exact": json.dumps(on_disk)}
+
+
+def ccase_chrome_trace_dag_branch_flows(P):
+    """The continuous half of ``test_chrome_trace_dag_branch_flows``."""
+    arms = P.arms.dag_action_space()
+    cfg = P.eng.SimConfig(n_requests=48, mean_interarrival=1.2, seed=5)
+    reqs = P.eng.make_requests(cfg)
+    qt = P.work.synthetic_quality_table(reqs, arms=arms)
+    eng = _cont(P, P.work.CyclePolicy(), qt, cfg, arms=arms,
+                runtime_cfg=P.rt.RuntimeConfig(trace=True))
+    eng.run(reqs)
+    trace = P.obs.to_chrome_trace(eng.tracer)
+    assert P.obs.validate_chrome_trace(trace) == []
+    evs = trace["traceEvents"]
+    assert "relay" in {e["args"]["name"] for e in evs if e["ph"] == "M"}
+    assert any(e["ph"] == "i" and e.get("cat") == "branch" for e in evs)
+    joins = [e for e in evs if e["ph"] == "X" and e.get("cat") == "join"]
+    assert joins and all("winner" in e["args"] for e in joins)
+    fids = {e["id"] for e in evs if e["ph"] in ("s", "t", "f")}
+    branch = {f for f in fids if isinstance(f, str) and "/" in f}
+    assert {f.split("/", 1)[1] for f in branch} >= {"spec", "ref"}
+    assert any(e["ph"] == "X" and e["args"].get("offpath") for e in evs)
+    events = [(e["ph"], e["name"], e.get("ts"), e.get("dur")) for e in evs]
+    return {"exact": (events, _joins(eng.tracer))}
+
+
+def ccase_spans_jsonl_roundtrip(P):
+    eng, recs = _ctraced(P, n=12)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "spans.jsonl"
+        n_lines = P.obs.write_spans_jsonl(eng.tracer, str(path))
+        lines = [json.loads(x) for x in path.read_text().splitlines()]
+    assert len(lines) == n_lines
+    assert {x["rid"] for x in lines if x["type"] == "request"} == \
+        {r.rid for r in recs}
+    return {"exact": lines}
+
+
+def ccase_introspection_from_engine_records(P):
+    eng, recs = _ctraced(P, n=30)
+    intro = P.obs.SchedulerIntrospection.from_records(recs, eng.n_arms)
+    assert int(intro.pulls.sum()) == len(recs)
+    assert intro.cumulative_regret() >= 0.0
+    return {"exact": intro.pulls.tolist(),
+            "approx": [intro.cumulative_regret()]}
+
+
+def ccase_profiler_counts_and_bit_identity(P):
+    kw = dict(straggler_prob=0.2, straggler_factor=6.0)
+    prof = P.obs.EventLoopProfiler()
+    _, recs_p = _ctraced(P, profiler=prof, **kw)
+    _, recs_0 = _ctraced(P, **kw)
+    assert _timing(recs_p) == _timing(recs_0)
+    rep = prof.report()
+    assert rep["events"] > 0 and rep["loop_wall_s"] > 0
+    assert {"arrive", "batch_done"} <= set(rep["per_event_type"])
+    assert sum(v["count"] for v in rep["per_event_type"].values()) == \
+        rep["events"]
+    assert rep["heap_ops"]["pushes"] == rep["heap_ops"]["pops"] == \
+        rep["events"]
+    return {"exact": (_timing(recs_p), _profile_counts(rep))}
+
+
+# tests/test_dag.py
+
+
+def _case_dag_continuous(seed):
+    def case(P):
+        """The continuous half of ``test_runtime_parity_on_dag_action_
+        space``: the sequential and the continuous runtime of one package
+        take the same arms, quality, fault counters and Select outcomes,
+        and spans tile ``t_total`` on both."""
+        arms = P.arms.dag_action_space()
+        arms = arms + (P.arms.Arm(
+            len(arms),
+            P.arms.speculative_program("XL", 20, 10, bound_pct=0.0),
+            "XL@s=20|spec=10|reject"),)
+        cfg = P.eng.SimConfig(n_requests=60, mean_interarrival=1.2,
+                              seed=seed, straggler_prob=0.15,
+                              straggler_factor=6.0)
+        reqs = P.eng.make_requests(cfg)
+        qt = P.work.synthetic_quality_table(reqs, arms=arms)
+        runs = {}
+        for runtime in ("sequential", "continuous"):
+            eng = _engine(P, P.work.CyclePolicy(), qt, cfg, runtime=runtime,
+                          arms=arms, runtime_cfg=P.rt.RuntimeConfig(trace=True))
+            runs[runtime] = (eng, {r.rid: r for r in eng.run(reqs)})
+        (eng_s, rs), (eng_c, rc) = runs["sequential"], runs["continuous"]
+        assert sorted(rs) == sorted(rc)
+        for rid in rs:
+            assert rs[rid].arm == rc[rid].arm
+            assert rs[rid].quality == rc[rid].quality
+        assert eng_s.fault_counters.as_dict() == eng_c.fault_counters.as_dict()
+        js, jc = (_dag_join_outcomes(e.tracer) for e in (eng_s, eng_c))
+        assert js and js == jc
+        flags = {acc for joins in jc.values() for (_, acc, _, _, _) in joins
+                 if acc is not None}
+        assert flags == {True, False}
+        for eng in (eng_s, eng_c):
+            assert eng.tracer.coverage() == 1.0
+            assert P.obs.attribution_residual(eng.tracer) < 1e-6
+        exact = {rid: [j[:3] for j in joins] for rid, joins in jc.items()}
+        pct = [x for joins in jc.values() for j in joins for x in j[3:]
+               if x is not None]
+        return {"exact": (exact, _timing(rc.values()),
+                          eng_c.fault_counters.as_dict()),
+                "approx": _rewards_quality(rc.values()),
+                "select_pct": pct}
+    return case
+
+
+def ccase_dag_tracing_off_is_bit_identical(P):
+    arms = P.arms.dag_action_space()
+    cfg = P.eng.SimConfig(n_requests=40, mean_interarrival=1.2, seed=7)
+    reqs = P.eng.make_requests(cfg)
+    qt = P.work.synthetic_quality_table(reqs, arms=arms)
+    runs = []
+    for trace in (True, False):
+        eng = _cont(P, P.work.CyclePolicy(), qt, cfg, arms=arms,
+                    runtime_cfg=P.rt.RuntimeConfig(trace=trace))
+        runs.append(_by_rid(eng.run(reqs)))
+    on, off = runs
+    assert [r.arm for r in on] == [r.arm for r in off]
+    assert [r.t_total for r in on] == [r.t_total for r in off]
+    assert [r.quality for r in on] == [r.quality for r in off]
+    assert [r.reward for r in on] == [r.reward for r in off]
+    return {"exact": _timing(on), "approx": _rewards_quality(on)}
+
+
+def ccase_legacy_arms_unperturbed_inside_dag_space(P):
+    def fixed(k):
+        class Fixed(P.pol.Policy):
+            name = "Fixed"
+
+            def select(self, ctx, avail):
+                return k
+        return Fixed()
+
+    cfg = P.eng.SimConfig(n_requests=30, mean_interarrival=1.5, seed=13)
+    reqs = P.eng.make_requests(cfg)
+    exact, approx = [], []
+    for k in (0, 3, 8):  # standalone, XL relay, F3 relay
+        runs = []
+        for arms in (P.arms.build_action_space(), P.arms.dag_action_space()):
+            qt = P.work.synthetic_quality_table(reqs, arms=arms)
+            runs.append(_by_rid(_cont(P, fixed(k), qt, cfg,
+                                      arms=arms).run(reqs)))
+        legacy, dag = runs
+        assert [r.t_total for r in legacy] == [r.t_total for r in dag]
+        assert [r.quality for r in legacy] == [r.quality for r in dag]
+        assert [r.reward for r in legacy] == [r.reward for r in dag]
+        exact.append(_timing(legacy))
+        approx += _rewards_quality(legacy)
+    return {"exact": exact, "approx": approx}
+
+
+CONTINUOUS_CASES = {
+    "event_loop_fixes::fallback_avoids_dead_pools":
+        ccase_fallback_avoids_dead_pools,
+    "event_loop_fixes::fallback_regression_old_behavior_loses_requests":
+        ccase_fallback_regression_old_behavior_loses_requests,
+    "event_loop_fixes::stale_flushes_are_skipped_not_handled":
+        ccase_stale_flushes_are_skipped_not_handled,
+    "event_loop_fixes::at_most_one_live_flush_per_pool":
+        ccase_at_most_one_live_flush_per_pool,
+    "runtime_properties::occupancy_features": ccase_occupancy_features,
+    "program_ir::linucb_decisions_identical_on_fig6_workload":
+        ccase_linucb_decisions_identical_on_fig6_workload,
+    "obs::tracer_spans_tile_lifetime": ccase_tracer_spans_tile_lifetime,
+    "obs::tracing_off_is_bit_identical": ccase_tracing_off_is_bit_identical,
+    "obs::chrome_trace_schema_and_flows": ccase_chrome_trace_schema_and_flows,
+    "obs::chrome_trace_dag_branch_flows": ccase_chrome_trace_dag_branch_flows,
+    "obs::spans_jsonl_roundtrip": ccase_spans_jsonl_roundtrip,
+    "obs::introspection_from_engine_records":
+        ccase_introspection_from_engine_records,
+    "obs::profiler_counts_and_bit_identity":
+        ccase_profiler_counts_and_bit_identity,
+    "dag::runtime_parity_seed3": _case_dag_continuous(3),
+    "dag::runtime_parity_seed11": _case_dag_continuous(11),
+    "dag::tracing_off_is_bit_identical":
+        ccase_dag_tracing_off_is_bit_identical,
+    "dag::legacy_arms_unperturbed_inside_dag_space":
+        ccase_legacy_arms_unperturbed_inside_dag_space,
+}
+
+
+@pytest.mark.parametrize("case", list(CONTINUOUS_CASES))
+def test_reference_continuous_case(case):
+    _compare(CONTINUOUS_CASES[case])
 
 
 # ---------------------------------------------------------------------------
@@ -901,12 +1332,42 @@ def _guard_engine(**kw):
                             **kw)
 
 
-def test_continuous_runtime_is_not_ported():
-    with pytest.raises(NotImplementedError, match=r"item 8\(b\)2"):
-        _guard_engine(runtime="continuous")
-    with pytest.raises(NotImplementedError, match=r"item 8\(b\)2"):
-        te.ServingEngine(twork.CyclePolicy(), None, te.SimConfig(),
-                         device="cpu")
+def test_continuous_is_the_default_runtime():
+    eng = te.ServingEngine(twork.CyclePolicy(), None, te.SimConfig(),
+                           device="cpu")
+    assert eng.runtime == "continuous" and eng.telemetry is None
+    cfg = te.SimConfig(n_requests=6, seed=1)
+    reqs = te.make_requests(cfg)
+    eng = te.ServingEngine(twork.CyclePolicy(),
+                           twork.synthetic_quality_table(reqs), cfg,
+                           device="cpu")
+    recs = eng.run(reqs)
+    assert sorted(r.rid for r in recs) == list(range(6))
+    assert isinstance(eng.telemetry, trt.RuntimeTelemetry)
+    assert eng.fault_counters is eng.telemetry.faults
+    assert eng.tracer.coverage() == 1.0 and sorted(eng.trace) == \
+        list(range(6))
+
+
+def test_continuous_guards(monkeypatch):
+    with pytest.raises(ValueError, match="unknown runtime"):
+        _guard_engine(runtime="Continuous")
+    with pytest.raises(ValueError, match="policy sized for 11 arms"):
+        _guard_engine(runtime="continuous",
+                      policy=tpol.RisePolicy(device="cpu"),
+                      arms=tarms.cascade_action_space())
+    cfg = te.SimConfig(n_requests=2, straggler_mode="bogus")
+    with pytest.raises(ValueError, match="unknown straggler_mode"):
+        te.ServingEngine(twork.CyclePolicy(), None, cfg, runtime="continuous",
+                         device="cpu").run(te.make_requests(cfg))
+    rt = trt.ContinuousRuntime(twork.CyclePolicy(), None, te.SimConfig(),
+                               device="cpu")
+    assert rt.transport.device.type == "cpu" and rt.transport.cfg.compress
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        te.ServingEngine(twork.CyclePolicy(), None, te.SimConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trt.ContinuousRuntime(twork.CyclePolicy(), None, te.SimConfig())
 
 
 def test_unknown_runtime_and_policy_size_raise():

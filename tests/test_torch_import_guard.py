@@ -193,31 +193,34 @@ assert sctx.telemetry_features(2.0, 0.5).tolist() == [1.0, 0.5]
 assert synthetic_quality_table([req]).shape == (1, 11)
 assert CyclePolicy().select(ctx, avail) == 0
 
-# the sequential serving engine over the synthetic table, raw and
-# compressed; the continuous runtime is not ported
+# both serving engines over the synthetic table, raw and compressed: the
+# sequential loop and the continuous-batching runtime (the default)
+from repro_torch.launch.serve import resolve_runtime_config
 from repro_torch.serving.engine import (ServingEngine, SimConfig,
                                         make_requests, summarize)
-from repro_torch.serving.runtime import RuntimeConfig
+from repro_torch.serving.runtime import ContinuousRuntime, RuntimeConfig
 
 sim = SimConfig(n_requests=8, mean_interarrival=1.0, seed=2)
 reqs = make_requests(sim)
 table = synthetic_quality_table(reqs)
 served = []
-for rc in (None, RuntimeConfig()):
-    eng = ServingEngine(CyclePolicy(), table, sim, runtime="sequential",
+for runtime, rc in (("sequential", None), ("sequential", RuntimeConfig()),
+                    ("continuous", RuntimeConfig(compress_handoff=False)),
+                    ("continuous", resolve_runtime_config("continuous",
+                                                          False))):
+    eng = ServingEngine(CyclePolicy(), table, sim, runtime=runtime,
                         runtime_cfg=rc, device="cpu")
-    recs = eng.run(reqs)
+    recs = sorted(eng.run(reqs), key=lambda r: r.rid)
     assert [r.arm for r in recs] == list(range(8))
     assert all(np.isfinite(r.reward) and r.t_total > 0 for r in recs)
     assert eng.tracer.coverage() == 1.0
     served.append(summarize(recs))
-assert served[0]["arm_histogram"] == served[1]["arm_histogram"]
+assert served[0]["arm_histogram"] == served[2]["arm_histogram"]
 assert served[1]["clip"] < served[0]["clip"]
-try:
-    ServingEngine(CyclePolicy(), table, sim, device="cpu")
-    raise AssertionError("the continuous runtime constructed")
-except NotImplementedError:
-    pass
+assert served[3]["clip"] < served[2]["clip"]
+rt = ContinuousRuntime(CyclePolicy(), table, sim, RuntimeConfig(),
+                       device="cpu")
+assert len(rt.run(reqs)) == 8 and rt.idle()
 print("ok", len(names))
 """
 
