@@ -6,8 +6,9 @@ card.
 
 It drives the port's main paths — the diffusion relay executor on linear
 and DAG arms, the scheduler's decision loop over the executor's quality
-table, the sequential serving engine and the continuous-batching runtime
-over that table, the serving driver end to end, the LM prefix relay
+table, the sequential serving engine, the continuous-batching runtime
+and a fleet of three clusters over that table, the serving driver end to
+end, the LM prefix relay
 at ``qwen3-4b`` width and the same relay at ``recurrentgemma-9b`` width —
 and holds every CUDA kernel against its plain PyTorch version.  Phases,
 each failing the run (non-zero exit, no result line) on any mismatch:
@@ -207,15 +208,39 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     the quality table's launches and the runtime's round trips exact
     (``table_launches``, ``warm_launches``); the same run with ``--policy
     rr`` on the card and with ``--device cpu`` equal in arms, latencies
-    and runtime telemetry.
+    and runtime telemetry;
+19. the fleet (``serving/fleet/engine.py::FleetEngine``) over phase 16's
+    96 requests and its quality table, on ``benchmarks/bench_fleet.py``'s
+    three clusters (``FLEET_CLUSTERS``: the testbed inventory, one and
+    four replicas per pool; regions by ``rid % 3``), checking only what
+    the card computes: (a) compressed, Cycle on every cluster, the
+    fleet's transports on the card against ``device="cpu"`` for each
+    router and once autoscaled (``AutoscaleConfig()``): every cluster's
+    records in completion order (arms, ``t_total``, ``wait_s``,
+    contexts), the assignments and every cluster's telemetry (pool stats,
+    fault and autoscale counters) exact, quality and reward within
+    ``ENGINE_RTOL``; (b) a one-cluster fleet on the card against the
+    standalone runtime on the card, every ``Record`` field bit for bit in
+    completion order; (c) three ``FederatedRisePolicy`` on the card,
+    gossip every 30 s, against CPU policies fed the card's picks per
+    cluster in decision order (``FedReplay``) beside the same card
+    transports: records, assignments and gossips equal, the merged base
+    and every live state within ``RISE_ULPS``; (d) every card fleet's
+    ``quant_int8`` and ``dequant_int8`` launches, counted from 0 before
+    the fleet is built, equal to one round trip per family per cluster
+    (``fleet_launches``); (e) ms per request in alternating turns of
+    federated RISE on the card, RISE on the CPU beside the card's
+    transports and the whole fleet on the CPU, and of a fleet of one
+    against the standalone runtime (the driver's own cost); federated
+    against isolated cumulative reward (printed, not held).
 
-The phases run in the order 1-7, 11, 15, 16, 17, 18, 8-10, 12-14.  Every
+The phases run in the order 1-7, 11, 15, 16, 17, 18, 19, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
-over phases 3, 15, 16, 17 and 18; flash attention's over phases 8, the traced
+over phases 3 and 15-19; flash attention's over phases 8, the traced
 relay included, and 12), the card's line, and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -351,6 +376,14 @@ RISE_ULPS = 0
 ENGINE_TURNS = 3
 # phase 18: the requests of each serving-driver run (launch/serve.py)
 CLI_REQUESTS = 32
+# phase 19: bench_fleet's fleet (benchmarks/bench_fleet.py): (name,
+# region, replicas per pool, None for the testbed inventory) of each
+# cluster, the pools, the gossip period in simulated seconds, the routers
+FLEET_CLUSTERS = (("edge-a", "east", None), ("edge-b", "west", 1),
+                  ("edge-c", "south", 4))
+FLEET_POOLS = ("sdxl", "ssd1b", "vega", "sd3l", "sd3lt", "sd3m")
+FLEET_GOSSIP_S = 30.0
+FLEET_ROUTERS = ("least_loaded", "locality", "weighted")
 
 
 def check(ok: bool, what: str) -> None:
@@ -2066,6 +2099,279 @@ def runtime_phase(dev, stream, ex) -> dict:
     return total
 
 
+# ---- 19. the fleet ------------------------------------------------------
+
+
+def fleet_clusters() -> tuple:
+    """Phase 19: bench_fleet's heterogeneous clusters as ``ClusterSpec``s
+    (the testbed inventory, one replica per pool, four per pool)."""
+    from repro_torch.serving.fleet import ClusterSpec
+
+    return tuple(ClusterSpec(name, region=region,
+                             pool_replicas=(None if per_pool is None else
+                                            dict.fromkeys(FLEET_POOLS,
+                                                          per_pool)))
+                 for name, region, per_pool in FLEET_CLUSTERS)
+
+
+def fleet_region(req) -> str:
+    """bench_fleet's home region of a request (rid round-robin)."""
+    return FLEET_CLUSTERS[req.rid % len(FLEET_CLUSTERS)][1]
+
+
+def fleet_launches(runtimes) -> dict:
+    """Phase 19: each kernel's launches in one run of fresh ``runtimes``
+    (a fleet's clusters, or one standalone runtime): every runtime warms
+    its own transport on every family of the action space before the loop
+    (:func:`engine_launches`), so a compressed fleet launches one round
+    trip per family per cluster."""
+    want = dict.fromkeys(KERNELS, 0)
+    for rt in runtimes:
+        if rt.rt.compress_handoff:
+            fams = sorted({a.family for a in rt.arms} - {None})
+            for k, v in warm_launches(fams, False).items():
+                want[k] += v
+    return want
+
+
+def fleet_serve(what, policies, stream, dev, total, router="least_loaded",
+                autoscale=False, gossip=None, clusters=None, compress=True):
+    """Phase 19: one run of a fresh ``FleetEngine`` with its transports
+    on ``dev`` over ``stream``'s requests and quality table; on the card
+    its launches, counted from 0 just before the fleet is built, must
+    equal :func:`fleet_launches` and are added to ``total``.  Returns
+    (engine, result)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.fleet import (AutoscaleConfig, FleetConfig,
+                                           FleetEngine)
+    from repro_torch.serving.runtime import RuntimeConfig
+
+    build.reset_launches()
+    fleet = FleetConfig(clusters=clusters or fleet_clusters(), router=router,
+                        gossip_period_s=gossip)
+    eng = FleetEngine(fleet, stream.sim, stream.table, policies,
+                      rt_cfg=RuntimeConfig(compress_handoff=compress),
+                      autoscale=AutoscaleConfig() if autoscale else None,
+                      region_of=fleet_region, device=dev)
+    res = eng.run(stream.reqs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        got, want = dict(build.LAUNCHES), fleet_launches(eng.runtimes)
+        check(got == want, f"{what}: launches {got}, want {want}")
+        for k in total:
+            total[k] += got[k]
+    check(len(res.records) == stream.sim.n_requests
+          and sorted(res.assignments) == [r.rid for r in res.records]
+          and all(np.isfinite(r.reward) and np.isfinite(r.t_total)
+                  for r in res.records),
+          f"{what}: a request lost or not finite")
+    return eng, res
+
+
+def standalone(stream, dev, total):
+    """Phase 19: the standalone runtime under Cycle, compressed, with its
+    transport on ``dev``, over ``stream``; on the card its launches are
+    checked as a fleet of one's (:func:`fleet_launches`) and added to
+    ``total``.  Returns the runtime."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.runtime import ContinuousRuntime, RuntimeConfig
+    from repro_torch.serving.workload import CyclePolicy
+
+    build.reset_launches()
+    rt = ContinuousRuntime(CyclePolicy(), stream.table, stream.sim,
+                           RuntimeConfig(), device=dev)
+    rt.run(stream.reqs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        got = dict(build.LAUNCHES)
+        want = fleet_launches([rt])
+        check(got == want, f"standalone runtime: launches {got}, want {want}")
+        for k in total:
+            total[k] += got[k]
+    return rt
+
+
+def fleet_telemetry(res) -> list:
+    return [{"summary": t.summary(), "faults": t.faults.as_dict(),
+             "autoscale": t.autoscale.as_dict()} for t in res.telemetry]
+
+
+def fleet_twins(what, card, cpu) -> float:
+    """Phase 19 (a): a compressed fleet with its transports on the card
+    against the same fleet with ``device="cpu"``, each (engine, result):
+    every cluster's records in completion order as
+    :func:`compressed_twins` holds them, the assignments and every
+    cluster's telemetry (pool stats, fault and autoscale counters) exact.
+    Returns the worst relative difference of quality and reward."""
+    (ce, cr), (pe, pr) = card, cpu
+    check(cr.assignments == pr.assignments,
+          f"{what}: assignments differ")
+    check(fleet_telemetry(cr) == fleet_telemetry(pr),
+          f"{what}: telemetry differs")
+    return max(compressed_twins(f"{what}, cluster {k}",
+                                (ce.runtimes[k], cr.per_cluster[k]),
+                                (pe.runtimes[k], pr.per_cluster[k]))
+               for k in range(len(ce.runtimes)))
+
+
+class FedReplay(ReplayPolicy):
+    """Phase 19 (c): a :class:`ReplayPolicy` over a ``FederatedRisePolicy``
+    that the federation can drive: ``state`` reads and writes the inner
+    policy's, ``take_delta`` is the inner policy's."""
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    @state.setter
+    def state(self, value):
+        self.inner.state = value
+
+    def take_delta(self):
+        return self.inner.take_delta()
+
+
+def record_fields(r) -> tuple:
+    """Every field of a ``Record``, the context as bytes."""
+    return (r.rid, r.arm, r.reward, r.t_total, r.quality, r.ctx.tobytes(),
+            r.wait_s)
+
+
+def fleet_phase(dev, stream) -> dict:
+    """Phase 19: the fleet (``serving/fleet/engine.py::FleetEngine``) on
+    the card over phase 16's stream and quality table, on bench_fleet's
+    three heterogeneous clusters, checking what the card computes: (a)
+    compressed, the transports on the card against ``device="cpu"`` under
+    Cycle, for each router and once autoscaled; (b) a one-cluster fleet
+    against the standalone runtime on the card, bit for bit; (c)
+    federated RISE on the card against RISE on the CPU by replay, gossip
+    on; (d) each card fleet's launches (:func:`fleet_serve`); (e) ms per
+    request in turns of three placements, and the one-cluster fleet
+    against the standalone runtime.  Returns the phase's kernel
+    launches."""
+    from repro_torch.serving.fleet import ClusterSpec, FederatedRisePolicy
+    from repro_torch.serving.workload import CyclePolicy
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    cpu = torch.device("cpu")
+    n = stream.sim.n_requests
+    n_clusters = len(FLEET_CLUSTERS)
+
+    # (a) the round trip's error in the records, card against CPU
+    rel, spread, scaled = {}, {}, {}
+    for router, autoscale in [(r, False) for r in FLEET_ROUTERS] + [
+            ("least_loaded", True)]:
+        what = f"fleet, compressed, {router}" + (", autoscaled"
+                                                 if autoscale else "")
+        card, twin = (fleet_serve(what, [CyclePolicy() for _ in
+                                         range(n_clusters)], stream, where,
+                                  total, router=router, autoscale=autoscale)
+                      for where in (dev, cpu))
+        key = router + ("+autoscale" if autoscale else "")
+        rel[key] = fleet_twins(what, card, twin)
+        spread[key] = np.bincount(list(card[1].assignments.values()),
+                                  minlength=n_clusters).tolist()
+        if autoscale:
+            scaled[key] = [t.autoscale.as_dict() for t in card[1].telemetry]
+            check(all(s["ticks"] > 0 for s in scaled[key]),
+                  f"{what}: a cluster never ticked")
+    print(f"fleet, compressed, card vs CPU ({n} requests, Cycle, "
+          f"{n_clusters} clusters; records, assignments and telemetry "
+          f"equal): quality/reward rel {json.dumps(rel)}; requests per "
+          f"cluster {json.dumps(spread)}; autoscaled {json.dumps(scaled)}")
+
+    # (b) a fleet of one is the standalone runtime, on the card
+    solo_spec = (ClusterSpec("solo"),)
+    _, one = fleet_serve("fleet of one", [CyclePolicy()], stream, dev, total,
+                         clusters=solo_spec)
+    solo = standalone(stream, dev, total)
+    check([record_fields(r) for r in one.per_cluster[0]]
+          == [record_fields(r) for r in solo.records],
+          "the one-cluster fleet differs from the standalone runtime")
+    print(f"fleet of one on the card == the standalone runtime: {n} "
+          f"records, every field bit for bit in completion order")
+
+    # (c) federated RISE on the card; each cluster's picks, in decision
+    # order, replayed into RISE on the CPU beside the same card transports
+    pols = [FederatedRisePolicy(seed=13 * k, device=dev)
+            for k in range(n_clusters)]
+    picks = [recorded(p) for p in pols]
+    fed, fres = fleet_serve("federated RISE", pols, stream, dev, total,
+                            gossip=FLEET_GOSSIP_S)
+    replays = [FedReplay(picks[k], FederatedRisePolicy(seed=13 * k,
+                                                       device=cpu))
+               for k in range(n_clusters)]
+    again, ares = fleet_serve("federated RISE replay", replays, stream, dev,
+                              total, gossip=FLEET_GOSSIP_S)
+    check([record_fields(r) for r in fres.records]
+          == [record_fields(r) for r in ares.records]
+          and fres.assignments == ares.assignments
+          and fres.n_gossips == ares.n_gossips > 1,
+          f"federated RISE: card and replayed fleets differ (gossips "
+          f"{fres.n_gossips}, {ares.n_gossips})")
+    forced = sum(r.forced for r in replays)
+    check(all(r.i == len(p) for r, p in zip(replays, picks))
+          and forced >= len(pols[0].arms),
+          f"federated RISE replay: {[r.i for r in replays]} decisions, "
+          f"{forced} forced")
+    states = [("base", fed.federation.base, again.federation.base)] + [
+        (f"cluster {k}", p.state, r.inner.state)
+        for k, (p, r) in enumerate(zip(pols, replays))]
+    drift = {name: {f: ulps(a.cpu().numpy(), b.numpy())
+                    for f, a, b in zip(x._fields, x, y)}
+             for name, x, y in states}
+    check(all(v <= RISE_ULPS for d in drift.values() for v in d.values()),
+          f"federated RISE state card vs CPU, ulps: {drift}")
+    print(f"fleet, federated RISE card vs CPU by replay ({n} decisions, "
+          f"{forced} forced and equal; {fres.n_gossips} gossips; records "
+          f"equal): merged base and live states, ulps "
+          f"{json.dumps(drift['base'])}, worst of all "
+          f"{max(v for d in drift.values() for v in d.values())}")
+
+    # (e) the cost of the fleet, compressed, gossip on: federated RISE on
+    # the card, RISE on the CPU beside the card's transports, and the
+    # whole fleet on the CPU; then the driver's own cost, a fleet of one
+    # against the standalone runtime (Cycle, on the card)
+    turns = {"rise_card": (dev, dev), "rise_cpu": (cpu, dev),
+             "fleet_cpu": (cpu, cpu)}
+    ms = {k: [] for k in list(turns) + ["fleet_of_one", "standalone"]}
+    reward = {}
+    for _ in range(ENGINE_TURNS):
+        for key, (p_dev, f_dev) in turns.items():
+            t1 = time.perf_counter()
+            _, res = fleet_serve(
+                "timed", [FederatedRisePolicy(seed=13 * k, device=p_dev)
+                          for k in range(n_clusters)],
+                stream, f_dev, total, gossip=FLEET_GOSSIP_S)
+            ms[key].append((time.perf_counter() - t1) * 1e3 / n)
+            reward[key] = res.cumulative_reward()
+        t1 = time.perf_counter()
+        fleet_serve("timed fleet of one", [CyclePolicy()], stream, dev,
+                    total, clusters=solo_spec)
+        ms["fleet_of_one"].append((time.perf_counter() - t1) * 1e3 / n)
+        t1 = time.perf_counter()
+        standalone(stream, dev, total)
+        ms["standalone"].append((time.perf_counter() - t1) * 1e3 / n)
+    loop = {k: {"median_ms": float(np.median(v)), "turns_ms": v}
+            for k, v in ms.items()}
+    _, iso = fleet_serve("isolated RISE", [
+        FederatedRisePolicy(seed=13 * k, device=dev)
+        for k in range(n_clusters)], stream, dev, total)
+    print(f"fleet ms per request, compressed ({ENGINE_TURNS} turns of "
+          f"federated RISE on the card, RISE on the CPU with the card's "
+          f"transports, the fleet on the CPU; and Cycle through a fleet of "
+          f"one against the standalone runtime, on the card): "
+          f"{json.dumps(loop)}")
+    print(f"fleet cumulative reward over {n} requests (a smoke reading, "
+          f"not a claim): federated {reward['rise_card']:.6f} (gossip "
+          f"every {FLEET_GOSSIP_S:g} s), isolated "
+          f"{iso.cumulative_reward():.6f}")
+    print(f"fleet phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def mixer_layers(cfg, mixer: str) -> int:
     """The number of layers of ``cfg`` whose mixer is ``mixer``."""
     from repro_torch.models import transformer as tr
@@ -2924,6 +3230,11 @@ def main() -> int:
     runtime_total = runtime_phase(dev, stream, ex_raw)
     for name in DIFFUSION_KERNELS:
         launches[name] += runtime_total[name]
+
+    # ---- 19. the fleet, on phase 16's table --------------------------------
+    fleet_total = fleet_phase(dev, stream)
+    for name in DIFFUSION_KERNELS:
+        launches[name] += fleet_total[name]
 
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs

@@ -5,10 +5,11 @@ step's wrapper, reduced LM relays (dense, traced and exported, and
 RecurrentGemma), the scheduler (RISE, PPO, the handoff transport, one
 federated gossip, the LinUCB snapshot), the parts the engines stand on
 (the event queue, the aggregator, the telemetry, the serving context, the
-synthetic workload) and the sequential serving engine (8 requests, raw
-and compressed) run on the CPU, in a process where ``jax`` and the
-reference package ``repro`` cannot be imported; no port source imports
-either."""
+synthetic workload), both serving engines (8 requests, raw and
+compressed) and a two-cluster fleet (locality routing, autoscaled,
+federated RISE gossiping) run on the CPU, in a process where ``jax`` and
+the reference package ``repro`` cannot be imported; no port source
+imports either."""
 from __future__ import annotations
 
 import os
@@ -221,6 +222,26 @@ assert served[3]["clip"] < served[2]["clip"]
 rt = ContinuousRuntime(CyclePolicy(), table, sim, RuntimeConfig(),
                        device="cpu")
 assert len(rt.run(reqs)) == 8 and rt.idle()
+
+# the fleet: two clusters (one replica per pool in the second), the
+# locality router, autoscaled, federated RISE gossiping every 3 s
+from repro_torch.serving.fleet import (AutoscaleConfig, ClusterSpec,
+                                       FleetConfig, FleetEngine)
+
+fleet = FleetConfig(clusters=(
+    ClusterSpec("a", region="east"),
+    ClusterSpec("b", region="west",
+                pool_replicas=dict.fromkeys(POOL_REPLICAS, 1))),
+    router="locality", gossip_period_s=3.0)
+pols = [FederatedRisePolicy(seed=k, device="cpu") for k in range(2)]
+eng = FleetEngine(fleet, sim, table, pols, autoscale=AutoscaleConfig(),
+                  region_of=lambda r: ("east", "west")[r.rid % 2],
+                  device="cpu")
+res = eng.run(reqs)
+assert [r.rid for r in res.records] == list(range(8))
+assert sorted(res.assignments) == list(range(8)) and res.n_gossips >= 1
+assert float(eng.federation.base.counts.sum()) >= 1.0
+assert all(t.autoscale.ticks > 0 for t in res.telemetry)
 print("ok", len(names))
 """
 

@@ -35,7 +35,8 @@ Then every test of ``tests/test_runtime_parity.py`` and the engine cases
 of ``tests/test_runtime.py``, each written once over a package and run on
 both, their observables compared; the stepping interface (``begin``,
 ``step``, ``peek_time``, ``idle``, ``inject``, ``load_snapshot``), and
-the AUTOSCALE branch under a scripted autoscaler given to both.
+the AUTOSCALE branch under a scripted autoscaler given to both and under
+each package's ``ReplicaAutoscaler``.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.serving.fleet import autoscale as jautoscale
+from repro_torch.serving.fleet import autoscale as tautoscale
 from test_torch_engine import (COMPRESSED_RTOL, PORT, REF, SCENARIOS,
                                SPACES, ReplayPolicy, _assert_exact_fields,
                                _by_rid, _compare, _cont, _engine, _joins,
@@ -318,6 +321,33 @@ def test_autoscale_branch_equals_reference(space, sim_kw):
     # the autoscaler's actions never reach the fault counters
     want = 1 if "fail_replica" in sim_kw else 0
     assert out["port"][0]["faults"]["replica_failures"] == want
+
+
+@pytest.mark.parametrize("space,sim_kw", [
+    ("table2", dict(n_requests=80, mean_interarrival=0.5, seed=34)),
+    ("dag", dict(n_requests=60, mean_interarrival=1.0, seed=35,
+                 straggler_prob=0.2, straggler_factor=6.0)),
+    ("cascade", dict(n_requests=60, mean_interarrival=0.7, seed=36)),
+])
+def test_replica_autoscaler_equals_reference(space, sim_kw):
+    """The fleet's own autoscaler (``serving/fleet/autoscale.py``), each
+    package's, on the AUTOSCALE branch: thresholds low enough that pools
+    scale both ways; records, counters, telemetry and spans equal, and
+    the controller's streak and cooldown state after the run."""
+    kw = dict(interval_s=2.0, up_backlog_s=4.0, down_occupancy=0.5,
+              up_sustain=1, down_sustain=2, cooldown_s=4.0)
+    out = {}
+    for name, P, F in (("ref", REF, jautoscale), ("port", PORT, tautoscale)):
+        scaler = F.ReplicaAutoscaler(F.AutoscaleConfig(**kw))
+        rt, reqs = _runtime(P, space, sim_kw, {"autoscaler": scaler})
+        rt.run(reqs)
+        assert len(rt.records) == sim_kw["n_requests"]
+        out[name] = (_observed(P, rt), rt.telemetry.autoscale.as_dict(),
+                     scaler._up_streak, scaler._down_streak,
+                     scaler._last_action)
+    assert out["port"] == out["ref"]
+    auto = out["port"][1]
+    assert auto["scale_ups"] > 0 and auto["scale_downs"] > 0
 
 
 # ---------------------------------------------------------------------------
