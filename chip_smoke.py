@@ -8,7 +8,7 @@ It drives the port's main paths — the diffusion relay executor on linear
 and DAG arms, the scheduler's decision loop over the executor's quality
 table, the sequential serving engine, the continuous-batching runtime
 and a fleet of three clusters over that table, the serving driver end to
-end, the LM prefix relay
+end, diffusion training and the Table III baselines, the LM prefix relay
 at ``qwen3-4b`` width and the same relay at ``recurrentgemma-9b`` width —
 and holds every CUDA kernel against its plain PyTorch version.  Phases,
 each failing the run (non-zero exit, no result line) on any mismatch:
@@ -232,15 +232,37 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     federated RISE on the card, RISE on the CPU beside the card's
     transports and the whole fleet on the CPU, and of a fleet of one
     against the standalone runtime (the driver's own cost); federated
-    against isolated cumulative reward (printed, not held).
+    against isolated cumulative reward (printed, not held);
+20. diffusion training and the Table III baselines
+    (``diffusion/train.py``, ``core/accel_baselines.py``): (a) one
+    training step of each of the six nets at full width, batch 64, from
+    the same initial net and host draws, card against ``device="cpu"``:
+    the loss, every gradient (and the same parameters without one), Adam
+    alone on identical inputs in ulps, the parameters after the step (but
+    elements whose gradient lies at the noise floor or near Adam's eps,
+    counted and bounded),
+    and whether two card runs agree bit for bit (printed); (b)
+    ``get_or_train_families`` on the card into a temporary directory (300
+    steps, batch 64, mid stages): every model's loss falls, the four
+    checkpoints read back by ``load_families`` equal the trained modules
+    bit for bit, the teacher pool launches the interior step 50 times for
+    F3 and never for XL; (c) the quality table of those families beside
+    the committed ones on 8 requests (a reading); (d) full sampling,
+    DeepCache, T-GATE and SADA on the committed trained large nets, 8
+    requests a family, card against CPU (latents within 1e-4, evals and
+    model calls equal, a SADA stability test within ``SADA_TIE`` of its
+    threshold reported as a tie), the interior step 50 times per F3 call
+    and never on XL, ms per request in alternating turns; (e) seconds per
+    training step of each net on each device; nothing under ``results/``
+    changes.
 
-The phases run in the order 1-7, 11, 15, 16, 17, 18, 19, 8-10, 12-14.  Every
+The phases run in the order 1-7, 11, 15-20, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
-over phases 3 and 15-19; flash attention's over phases 8, the traced
+over phases 3 and 15-20; flash attention's over phases 8, the traced
 relay included, and 12), the card's line, and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -384,6 +406,34 @@ FLEET_CLUSTERS = (("edge-a", "east", None), ("edge-b", "west", 1),
 FLEET_POOLS = ("sdxl", "ssd1b", "vega", "sd3l", "sd3lt", "sd3m")
 FLEET_GOSSIP_S = 30.0
 FLEET_ROUTERS = ("least_loaded", "locality", "weighted")
+# phase 20: the six nets; the batch and steps of get_or_train_families (300
+# is the fewest at which the reference fine-tunes on trajectories, cut from
+# serve.py's 1500 for time)
+TRAIN_NETS = tuple((f, r) for f in ("XL", "F3")
+                   for r in ("large", "mid", "small"))
+TRAIN_BATCH, TRAIN_STEPS = 64, 300
+# one step card against CPU from the same init and host draws: the loss
+# (relative), every gradient (max |Δ| over max |CPU| per tensor), Adam alone
+# on identical inputs (ulps of the moments and the rate; the parameters in
+# spacings of max(|p|, |p'|), as p − u may cancel), and the parameters
+# after the step (max |Δ| over max |CPU| per tensor) but for the floor:
+# elements whose CPU gradient is under GRAD_FLOOR of its tensor's largest,
+# or under EPS_FLOOR (100 × Adam's eps).  Adam's first update is
+# lr·g/(|g| + eps): about ±lr whatever the gradient's size, so a gradient
+# at rounding noise whose sign differs moves the element 2·lr, and where
+# |g| is within 100 eps the update follows the gradient's last bits (a
+# card run read up to 1.4e-2 of max |p| there, each element's difference
+# the one its two gradients predict).  Floor elements beyond
+# TRAIN_PARAM_RTOL are counted, at most FLOOR_SHARE of the floor (read
+# 5.7 % on XL large, 94 of 1,642; H100 80GB HBM3, 700 W)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+TRAIN_ADAM_ULPS = 4
+TRAIN_PARAM_RTOL, GRAD_FLOOR, EPS_FLOOR, FLOOR_SHARE = 1e-5, 1e-4, 1e-6, 0.15
+# the Table III baselines: requests a family, SADA's threshold (its
+# default) and the tie bound on its stability measure, timed turns
+BASELINES = ("full", "deepcache", "tgate", "sada")
+BASELINE_REQUESTS, BASELINE_TURNS = 8, 3
+SADA_THRESHOLD, SADA_TIE = 0.12, 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -1301,6 +1351,13 @@ def ulps(a, b) -> int:
     a, b = (np.asarray(x, np.float32).view(np.int32).astype(np.int64)
             for x in (a, b))
     return int(np.abs(a - b).max()) if a.size else 0
+
+
+def spacings(a, b, scale) -> float:
+    """max |a − b| in fp32 spacings at |scale| (elementwise)."""
+    gap = np.spacing(np.abs(np.asarray(scale, np.float32)))
+    diff = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float((diff / gap).max()) if diff.size else 0.0
 
 
 def transport_checks(dev, total) -> "HandoffTransport":
@@ -2372,6 +2429,433 @@ def fleet_phase(dev, stream) -> dict:
     return total
 
 
+def train_setup(fam: str, role: str, seed: int, teachers):
+    """Phase 20: one (family, role) net's first training step set up on
+    the host: the initial net (``init_net`` from a seeded generator), the
+    step's ``synth.batch`` (step 1 of ``train_model``), its host draws, and
+    a function of (net, device) giving the loss on that device; mid and
+    small nets are distilled from ``teachers[device type][fam]``."""
+    from repro_torch.diffusion import synth
+    from repro_torch.diffusion import train
+    from repro_torch.diffusion.families import NET_CONFIGS
+    from repro_torch.models.diffusion_nets import init_net
+
+    cfg = NET_CONFIGS[(fam, role)]
+    gen = torch.Generator().manual_seed(seed)
+    net = init_net(cfg, gen)
+    seeds = np.arange(TRAIN_BATCH, 2 * TRAIN_BATCH)
+    _, x0, cond = synth.batch(seeds, fam)
+    x0, cond = torch.from_numpy(x0), torch.from_numpy(cond)
+    if role == "large":
+        draws = (train._draw_xl if fam == "XL" else train._draw_f3)(gen, x0)
+    else:
+        draws = train._draw_distill(gen, fam, x0)
+
+    def loss(net, where):
+        args = [a.to(where) for a in (x0, cond) + draws]
+        if role == "large":
+            fn = train._loss_xl if fam == "XL" else train._loss_f3
+            return fn(net, *args)
+        return train._loss_distill(net, teachers[where.type][fam], fam,
+                                   *args)
+    base_lr = 3e-3 if cfg.kind == "mmdit" else 1e-3
+    return cfg, net, loss, base_lr
+
+
+def grads_of(net, loss) -> tuple:
+    """(loss, gradients by parameter name, ``None`` where the loss does not
+    reach a parameter) of one net."""
+    names, params = zip(*net.named_parameters())
+    value = loss()
+    grads = torch.autograd.grad(value, params, allow_unused=True)
+    return value.detach(), dict(zip(names, grads))
+
+
+def rel_max(a, b) -> float:
+    """max |a − b| over max |b| (0 when both are all zero)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    scale = float(b.abs().max())
+    diff = float((a - b).abs().max())
+    return diff / scale if scale else diff
+
+
+def train_step_checks(dev, teachers) -> dict:
+    """Phase 20 (a): one training step of each of the six nets at full
+    width, batch 64, from the same initial net and the same host draws,
+    card against ``device="cpu"``: the loss, every gradient, Adam alone on
+    identical inputs, the parameters after the whole step (the floor,
+    elements whose CPU gradient lies under ``GRAD_FLOOR`` of its tensor's
+    largest or under ``EPS_FLOOR``, counted apart), and whether two card
+    runs agree bit for bit."""
+    import copy
+
+    from repro_torch.device import keep_fp32
+    from repro_torch.diffusion import train
+
+    keep_fp32(dev)  # as train_model does: fp32 convolutions and products
+    cpu = torch.device("cpu")
+    out = {}
+    for k, (fam, role) in enumerate(TRAIN_NETS):
+        what = f"{fam}/{role}"
+        cfg, net0, loss, base_lr = train_setup(fam, role, 20 + k, teachers)
+        nets = {"cpu": copy.deepcopy(net0),
+                "card": copy.deepcopy(net0).to(dev)}
+        read = {}
+        for key, where in (("cpu", cpu), ("card", dev)):
+            read[key] = grads_of(nets[key], lambda: loss(nets[key], where))
+        (l_cpu, g_cpu), (l_card, g_card) = read["cpu"], read["card"]
+        loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        check(loss_rel <= TRAIN_LOSS_RTOL,
+              f"{what}: loss card {float(l_card)} vs CPU {float(l_cpu)}")
+        unreached = sorted(n for n, g in g_cpu.items() if g is None)
+        check(unreached == sorted(n for n, g in g_card.items() if g is None),
+              f"{what}: the parameters without a gradient differ")
+        grad_rel = max(rel_max(g_card[n], g) for n, g in g_cpu.items()
+                       if g is not None)
+        check(grad_rel <= TRAIN_GRAD_RTOL,
+              f"{what}: gradient card vs CPU rel {grad_rel}")
+
+        # Adam alone: the CPU's gradients, step 1 from zero moments
+        adam = {}
+        for key, where in (("cpu", cpu), ("card", dev)):
+            p = [q.detach().clone().to(where) for q in net0.parameters()]
+            g = [None if x is None else x.to(where) for x in g_cpu.values()]
+            m, v = ([torch.zeros_like(q) for q in p] for _ in range(2))
+            step = torch.tensor(1.0, device=where)
+            lr = train.cosine_lr(base_lr, step, TRAIN_STEPS)
+            train._adam_step(p, g, m, v, step, lr)
+            adam[key] = (p, m, v, lr)
+        # m, v in ulps; the parameters in ulps of the larger of |p| before
+        # and after: p − u can cancel (u ≈ ±lr), and there a last-bit
+        # difference of u is many ulps of the small result
+        adam_ulps = {
+            name: max(ulps(a.cpu().numpy(), b.numpy())
+                      for a, b in zip(adam["card"][i], adam["cpu"][i]))
+            for i, name in ((1, "m"), (2, "v"))}
+        adam_ulps["params"] = max(
+            spacings(a.cpu().numpy(), b.numpy(), np.maximum(
+                np.abs(q.detach().numpy()), np.abs(b.numpy())))
+            for a, b, q in zip(adam["card"][0], adam["cpu"][0],
+                               net0.parameters()))
+        adam_ulps["lr"] = ulps(adam["card"][3].cpu().numpy(),
+                               adam["cpu"][3].numpy())
+        check(max(adam_ulps.values()) <= TRAIN_ADAM_ULPS,
+              f"{what}: Adam card vs CPU, ulps {adam_ulps}")
+
+        # the whole step on each device, twice on the card
+        after = {}
+        for key, where in (("cpu", cpu), ("card", dev), ("card2", dev)):
+            net = copy.deepcopy(net0).to(where)
+            opt = train.Adam(net)
+            train.train_step(opt, lambda: loss(net, where), 1, TRAIN_STEPS,
+                             base_lr)
+            after[key] = dict(net.named_parameters())
+        worst, floor, beyond = 0.0, 0, 0
+        for name, p_cpu in after["cpu"].items():
+            g = g_cpu[name]
+            err = ((after["card"][name].detach().cpu().double()
+                    - p_cpu.detach().double()).abs()
+                   / p_cpu.detach().double().abs().max())
+            low = torch.zeros_like(err, dtype=torch.bool)
+            if g is not None and float(g.abs().max()) > 0:
+                low = g.abs() < max(GRAD_FLOOR * float(g.abs().max()),
+                                    EPS_FLOOR)
+            if (~low).any():
+                worst = max(worst, float(err[~low].max()))
+            floor += int(low.sum())
+            beyond += int((err[low] > TRAIN_PARAM_RTOL).sum())
+        check(worst <= TRAIN_PARAM_RTOL,
+              f"{what}: parameters after a step, card vs CPU rel {worst}")
+        check(beyond <= FLOOR_SHARE * floor,
+              f"{what}: {beyond} of {floor} floor elements beyond "
+              f"{TRAIN_PARAM_RTOL}")
+        repeat = all(torch.equal(after["card"][n], after["card2"][n])
+                     for n in after["card"])
+        out[what] = {"loss_rel": loss_rel, "grad_rel": grad_rel,
+                     "unreached": unreached, "adam_ulps": adam_ulps,
+                     "param_rel": worst, "floor_elements": floor,
+                     "floor_beyond": beyond, "card_repeats_bitwise": repeat}
+    print(f"training step card vs CPU (full width, batch {TRAIN_BATCH}, "
+          f"same init and host draws; gradient floor {GRAD_FLOOR:g} of the "
+          f"tensor's largest or {EPS_FLOOR:g}): {json.dumps(out)}")
+    return out
+
+
+def results_digest() -> dict:
+    """sha256 of every file under ``results/``, by path."""
+    import hashlib
+
+    return {str(p.relative_to(REPO)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted((REPO / "results").rglob("*")) if p.is_file()}
+
+
+def trained_families(dev, total) -> tuple:
+    """Phase 20 (b): ``get_or_train_families(tmp, steps=TRAIN_STEPS,
+    batch=64, with_mid=True)`` on the card: every model's loss falls, the
+    files read back by ``load_families`` equal the trained modules bit
+    for bit, the teacher pool launches the interior step once per F3 step
+    and never on XL (each pool counted from 0 just before its call).
+    Returns (families, the seconds it took)."""
+    from repro_torch.diffusion import train
+    from repro_torch.diffusion.families import load_families
+    from repro_torch.kernels import build
+
+    losses, pools = {}, {}
+    real_train, real_pool = train.train_model, train.teacher_pool
+
+    def recording(seed, family, size, **kw):
+        net, ls = real_train(seed, family, size, **kw)
+        losses[f"{family}/{size}"] = ls
+        return net, ls
+
+    def pool(family, *args):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        out = real_pool(family, *args)
+        torch.cuda.synchronize()
+        pools[family] = dict(build.LAUNCHES)
+        for k in total:
+            total[k] += pools[family][k]
+        return out
+
+    train.train_model, train.teacher_pool = recording, pool
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            fams = train.get_or_train_families(
+                tmp, steps=TRAIN_STEPS, batch=TRAIN_BATCH, with_mid=True,
+                device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            names = sorted(p.name for p in Path(tmp).iterdir())
+            loaded = load_families(tmp, with_mid=True, device=dev)
+    finally:
+        train.train_model, train.teacher_pool = real_train, real_pool
+    check(names == ["diffusion_F3.ckpt", "diffusion_F3_mid.ckpt",
+                    "diffusion_XL.ckpt", "diffusion_XL_mid.ckpt"],
+          f"trained checkpoints: {names}")
+    check(sorted(losses) == sorted(f"{f}/{r}" for f, r in TRAIN_NETS)
+          and all(len(v) == TRAIN_STEPS for v in losses.values()),
+          f"trained models: {sorted(losses)}")
+    falls = {k: (float(np.mean(v[:5])), float(np.mean(v[-5:])))
+             for k, v in losses.items()}
+    check(all(last < first for first, last in falls.values()),
+          f"a model's loss did not fall (first 5, last 5): {falls}")
+    want = {"XL": 0, "F3": len(fams["F3"].spec.sigmas_edge) - 1}
+    got = {f: pools.get(f, {}).get("fused_cfg_step") for f in want}
+    check(got == want and all(
+        v == 0 for p in pools.values() for k, v in p.items()
+        if k != "fused_cfg_step"),
+        f"teacher-pool launches {pools}, interior step want {want}")
+    for fam in ("XL", "F3"):
+        for role in ("large", "mid", "small"):
+            a = getattr(fams[fam], f"{role}_params").state_dict()
+            b = getattr(loaded[fam], f"{role}_params").state_dict()
+            check(a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                               for k in a),
+                  f"{fam}/{role}: the checkpoint read back differs")
+    print(f"get_or_train_families on the card ({TRAIN_STEPS} steps, batch "
+          f"{TRAIN_BATCH}, with_mid; fine-tune {min(350, TRAIN_STEPS)} "
+          f"steps): {seconds:.1f} s; loss mean of the first and last 5 "
+          f"steps {json.dumps(falls)}; teacher-pool interior-step launches "
+          f"{json.dumps(got)}; {len(names)} checkpoints read back bit for "
+          f"bit")
+    return fams, seconds
+
+
+def quality_means(ex, seeds) -> dict:
+    """Per arm, the mean of each quality metric over ``seeds``."""
+    table = ex.quality_table(seeds)
+    return {arm.label: {k: float(np.mean([m[k] for m in table[:, arm.idx]]))
+                        for k in table[0, arm.idx]} for arm in ex.arms}
+
+
+def recorder(fn, calls):
+    """``fn`` recording each call's time value and prediction."""
+    def call(params, x, t, cond):
+        pred = fn(params, x, t, cond)
+        calls.append((float(t), pred))
+        return pred
+    return call
+
+
+def sada_deltas(calls) -> list:
+    """SADA's stability measure after each recorded call but the first,
+    as ``sada_sample`` computes it."""
+    preds = [p for _, p in calls]
+    return [float(torch.linalg.norm(b - a) / (torch.linalg.norm(a) + 1e-8))
+            for a, b in zip(preds, preds[1:])]
+
+
+def baseline_phase(dev, cards, cpus, total) -> dict:
+    """Phase 20 (d): the four Table III samplers on the committed trained
+    large nets, ``BASELINE_REQUESTS`` requests per family from host-drawn
+    noise, card against CPU (latents within ``RAW_RTOL``, evals equal, the
+    same model calls; a SADA run whose calls differ only after a
+    stability test within ``SADA_TIE`` of its threshold is reported as a
+    tie), the interior step launched once per F3 step and never on XL (each
+    call counted from 0 just before it); then ms per request of each on
+    the card in alternating turns."""
+    from repro_torch.core import accel_baselines as ab
+    from repro_torch.diffusion import synth
+    from repro_torch.kernels import build
+
+    n = BASELINE_REQUESTS
+    inputs, rel, evals, ties = {}, {}, {}, {}
+    for fam in ("XL", "F3"):
+        spec = cards[fam].spec
+        cond = torch.from_numpy(np.stack([
+            synth.embed(synth.sample_prompt(i), fam) for i in range(n)]))
+        xT = torch.randn((n,) + spec.latent_shape,
+                         generator=torch.Generator().manual_seed(31))
+        inputs[fam] = (xT.to(dev), cond.to(dev))
+        steps = len(spec.sigmas_edge) - 1
+        for name in BASELINES:
+            sample = getattr(ab, f"{name}_sample")
+            what = f"{fam} {name}"
+            calls = {"card": [], "cpu": []}
+            torch.cuda.synchronize()
+            build.reset_launches()
+            x_card, ev_card = sample(
+                spec.kind, recorder(cards[fam].large_fn, calls["card"]),
+                cards[fam].large_params, inputs[fam][0], spec.sigmas_edge,
+                inputs[fam][1])
+            torch.cuda.synchronize()
+            got = dict(build.LAUNCHES)
+            want = dict.fromkeys(KERNELS, 0)
+            want["fused_cfg_step"] = steps if spec.kind == "rf" else 0
+            check(got == want, f"{what}: launches {got}, want {want}")
+            for k in total:
+                total[k] += got[k]
+            x_cpu, ev_cpu = sample(
+                spec.kind, recorder(cpus[fam].large_fn, calls["cpu"]),
+                cpus[fam].large_params, xT, spec.sigmas_edge, cond)
+            check(x_card.shape == xT.shape
+                  and bool(torch.isfinite(x_card).all()),
+                  f"{what}: output shape or non-finite values")
+            t_card = [t for t, _ in calls["card"]]
+            t_cpu = [t for t, _ in calls["cpu"]]
+            if t_card != t_cpu and name == "sada":
+                # the first call that differs follows the stability test
+                # of the call before it
+                k = next((i for i, (a, b) in enumerate(zip(t_card, t_cpu))
+                          if a != b), min(len(t_card), len(t_cpu)))
+                deltas = (sada_deltas(calls["card"])[k - 2],
+                          sada_deltas(calls["cpu"])[k - 2])
+                check(min(abs(d - SADA_THRESHOLD) for d in deltas)
+                      < SADA_TIE,
+                      f"{what}: the skipped steps differ at call {k} "
+                      f"(stability {deltas})")
+                ties[what] = {"call": k, "deltas": deltas}
+                continue
+            check(t_card == t_cpu, f"{what}: the model calls differ")
+            check(type(ev_card) is type(ev_cpu) and ev_card == ev_cpu,
+                  f"{what}: evals {ev_card} vs {ev_cpu}")
+            rel[what] = norm_rel(x_card.cpu(), x_cpu)
+            check(rel[what] <= RAW_RTOL, f"{what}: card vs CPU rel "
+                  f"{rel[what]}")
+            evals[what] = ev_card
+    print(f"baselines card vs CPU ({n} requests a family; evals and model "
+          f"calls equal): latents rel {json.dumps(rel)}; evals "
+          f"{json.dumps(evals)}; SADA ties {json.dumps(ties)}")
+
+    ms = {f"{fam} {name}": [] for fam in ("XL", "F3") for name in BASELINES}
+    for _ in range(BASELINE_TURNS):
+        for fam in ("XL", "F3"):
+            spec = cards[fam].spec
+            for name in BASELINES:
+                sample = getattr(ab, f"{name}_sample")
+                build.reset_launches()
+                x, cond = inputs[fam]
+                _, t = host_timed(lambda: sample(
+                    spec.kind, cards[fam].large_fn, cards[fam].large_params,
+                    x, spec.sigmas_edge, cond))
+                ms[f"{fam} {name}"].append(t / n)
+                for k in total:
+                    total[k] += build.LAUNCHES[k]
+    loop = {k: {"median_ms": float(np.median(v)), "turns_ms": v}
+            for k, v in ms.items()}
+    print(f"baselines ms per request on the card ({BASELINE_TURNS} turns, "
+          f"{n}-request batches): {json.dumps(loop)}")
+    return loop
+
+
+def step_seconds(dev, teachers) -> dict:
+    """Phase 20 (e): seconds per training step of each net (full width,
+    batch 64, the same step repeated) on the card and on the CPU."""
+    import copy
+
+    from repro_torch.diffusion import train
+
+    out = {}
+    for k, (fam, role) in enumerate(TRAIN_NETS):
+        _, net0, loss, base_lr = train_setup(fam, role, 20 + k, teachers)
+        row = {}
+        for key, where, reps in (("card_s", dev, 20), ("cpu_s", "cpu", 3)):
+            where = torch.device(where)
+            net = copy.deepcopy(net0).to(where)
+            opt = train.Adam(net)
+            step = lambda i: train.train_step(opt, lambda: loss(net, where),
+                                              i, TRAIN_STEPS, base_lr)
+            float(step(1))
+            t0 = time.perf_counter()
+            for i in range(reps):
+                last = step(2 + i)
+            float(last)
+            row[key] = (time.perf_counter() - t0) / reps
+        out[f"{fam}/{role}"] = row
+    print(f"seconds per training step (batch {TRAIN_BATCH}, host draws "
+          f"made before the timed steps; card 20 steps, CPU 3): "
+          f"{json.dumps(out)}")
+    return out
+
+
+def train_phase(dev) -> dict:
+    """Phase 20: diffusion training and the Table III baselines on the
+    card: (a) one step of each net card against CPU; (b)
+    ``get_or_train_families`` on the card into a temporary directory; (c)
+    the quality table of the card-trained families beside the committed
+    ones (a reading); (d) the baselines card against CPU and their ms per
+    request; (e) seconds per training step on each device.  Nothing
+    under ``results/`` changes.  Returns the phase's kernel launches."""
+    from repro_torch.diffusion.families import load_families
+    from repro_torch.serving.arms import build_action_space
+    from repro_torch.serving.executor import Executor
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    before = results_digest()
+    committed = {"cuda": load_families(CKPTS, device=dev),
+                 "cpu": load_families(CKPTS, device="cpu")}
+    teachers = {k: {f: v.large_params for f, v in fams.items()}
+                for k, fams in committed.items()}
+
+    train_step_checks(dev, teachers)
+    trained, _ = trained_families(dev, total)
+
+    # (c) a reading, not held: quality of the card-trained families
+    seeds = np.arange(BASELINE_REQUESTS)
+    means = {k: quality_means(Executor(f, arms=build_action_space(),
+                                       device=dev), seeds)
+             for k, f in (("trained", trained),
+                          ("committed", committed["cuda"]))}
+    print(f"quality_table means, {BASELINE_REQUESTS} requests (a reading: "
+          f"families trained {TRAIN_STEPS} steps on the card beside the "
+          f"committed ones): {json.dumps(means)}")
+
+    baseline_phase(dev, committed["cuda"], committed["cpu"], total)
+    step_seconds(dev, teachers)
+    if (REPO / ".git").exists():
+        status = subprocess.run(["git", "status", "--porcelain", "results/"],
+                                cwd=REPO, capture_output=True, text=True,
+                                check=True).stdout
+        check(status == "", f"results/ changed: {status}")
+    check(results_digest() == before, "a file under results/ changed")
+    print(f"training phase launches: {json.dumps(total)}; results/ "
+          f"unchanged; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def mixer_layers(cfg, mixer: str) -> int:
     """The number of layers of ``cfg`` whose mixer is ``mixer``."""
     from repro_torch.models import transformer as tr
@@ -3235,6 +3719,11 @@ def main() -> int:
     fleet_total = fleet_phase(dev, stream)
     for name in DIFFUSION_KERNELS:
         launches[name] += fleet_total[name]
+
+    # ---- 20. diffusion training and the Table III baselines -------------
+    train_total = train_phase(dev)
+    for name in DIFFUSION_KERNELS:
+        launches[name] += train_total[name]
 
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs

@@ -127,3 +127,25 @@ def rf_euler_sample(v_fn: Callable, params, x: torch.Tensor,
 def sampler_for(kind: str) -> Callable:
     """"ddim" → :func:`ddim_sample`, "rf" → :func:`rf_euler_sample`."""
     return ddim_sample if kind == "ddim" else rf_euler_sample
+
+
+def _host_normal(generator: torch.Generator, like: torch.Tensor):
+    """N(0, 1) of ``like``'s shape and dtype, drawn on the host from
+    ``generator`` and moved to ``like``'s device."""
+    return torch.randn(like.shape, generator=generator,
+                       dtype=like.dtype).to(like.device)
+
+
+def vp_noise(generator: torch.Generator, x0: torch.Tensor, sigma):
+    """Forward-noise a clean latent to level σ in VP coords."""
+    ab = vp_alpha_bar(torch.as_tensor(sigma, dtype=torch.float32,
+                                      device=x0.device))
+    n = _host_normal(generator, x0)
+    return torch.sqrt(ab) * x0 + torch.sqrt(1 - ab) * n
+
+
+def rf_noise(generator: torch.Generator, x0: torch.Tensor, t):
+    """Forward-noise a clean latent to rectified-flow time t."""
+    n = _host_normal(generator, x0)
+    t = torch.as_tensor(t, dtype=torch.float32, device=x0.device)
+    return (1.0 - t) * x0 + t * n

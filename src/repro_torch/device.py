@@ -14,3 +14,16 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def keep_fp32(device) -> None:
+    """On CUDA, turn off TF32 for convolutions and matrix products.
+
+    cuDNN runs fp32 convolutions in TF32 by default, and TF32 keeps about
+    3 decimal digits; the port is held to the fp32 reference, so every
+    entry point that runs the denoisers on the card (the executor,
+    training, the acceleration baselines) calls this first.  Does nothing
+    on another device."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,6 +1,7 @@
 """Relay family registry: schedules + net configs + trained denoisers
-(port of ``repro/diffusion/families.py`` and of the cache-hit branch of
-``repro/diffusion/train.py::get_or_train_families``).
+(port of ``repro/diffusion/families.py``), and the loader of trained
+checkpoints that ``repro_torch/diffusion/train.py::get_or_train_families``
+reads on a cache hit.
 
 Each family carries a (large, small) pair sharing a latent space plus an
 optional mid-size stage.  The denoisers are ``nn.Module``s predicting the
@@ -122,6 +123,19 @@ def role_params(family, role: str):
     return getattr(family, f"{role}_params")
 
 
+def make_family(name: str, large_params, small_params,
+                mid_params=None) -> Family:
+    return Family(
+        spec=SPECS[name](),
+        large_cfg=NET_CONFIGS[(name, "large")],
+        small_cfg=NET_CONFIGS[(name, "small")],
+        large_params=large_params,
+        small_params=small_params,
+        mid_cfg=NET_CONFIGS[(name, "mid")],
+        mid_params=mid_params,
+    )
+
+
 def load_net(flat, cfg: dn.DiffNetConfig, device) -> nn.Module:
     """A denoiser with the reference's trained weights, in eval mode."""
     net = dn.build_net(cfg)
@@ -129,37 +143,41 @@ def load_net(flat, cfg: dn.DiffNetConfig, device) -> nn.Module:
     return net.eval().to(device)
 
 
+def checkpoint_path(ckpt_dir, fam: str, mid: bool = False) -> Path:
+    """``diffusion_<fam>.ckpt`` (the large and small nets) or
+    ``diffusion_<fam>_mid.ckpt`` (the mid stage) under ``ckpt_dir``."""
+    return Path(ckpt_dir) / f"diffusion_{fam}{'_mid' if mid else ''}.ckpt"
+
+
+def load_roles(path, fam: str, roles, device) -> Dict[str, nn.Module]:
+    """The nets of ``roles`` of family ``fam`` from one checkpoint."""
+    flat = load_flat(path)
+    return {role: load_net(subtree(flat, role), NET_CONFIGS[(fam, role)],
+                           device) for role in roles}
+
+
 def load_families(ckpt_dir="results/ckpts", *, with_mid: bool = False,
                   device=None) -> Dict[str, Family]:
-    """Load the relay families from the reference's checkpoints
+    """Load both relay families from their checkpoints
     (``diffusion_<fam>.ckpt``, and ``diffusion_<fam>_mid.ckpt`` with
-    ``with_mid``) onto ``device`` (CUDA unless given).  Raises if a
-    checkpoint is missing: the port does not train."""
+    ``with_mid``) onto ``device`` (CUDA unless given).  Raises
+    ``FileNotFoundError`` naming a missing checkpoint; train one with
+    :func:`repro_torch.diffusion.train.get_or_train_families`."""
     dev = resolve_device(device)
     out = {}
     for fam in SPECS:
-        paths = [Path(ckpt_dir) / f"diffusion_{fam}.ckpt"]
+        paths = [checkpoint_path(ckpt_dir, fam)]
         if with_mid:
-            paths.append(Path(ckpt_dir) / f"diffusion_{fam}_mid.ckpt")
+            paths.append(checkpoint_path(ckpt_dir, fam, mid=True))
         for p in paths:
             if not p.exists():
                 raise FileNotFoundError(
-                    f"{p} missing: train it with the JAX package "
-                    "(repro.diffusion.train.get_or_train_families)"
+                    f"{p} missing: train it with "
+                    "repro_torch.diffusion.train.get_or_train_families"
                 )
-        flat = load_flat(paths[0])
-        nets = {role: load_net(subtree(flat, role), NET_CONFIGS[(fam, role)],
-                               dev) for role in ("large", "small")}
+        nets = load_roles(paths[0], fam, ("large", "small"), dev)
         if with_mid:
-            nets["mid"] = load_net(subtree(load_flat(paths[1]), "mid"),
-                                   NET_CONFIGS[(fam, "mid")], dev)
-        out[fam] = Family(
-            spec=SPECS[fam](),
-            large_cfg=NET_CONFIGS[(fam, "large")],
-            small_cfg=NET_CONFIGS[(fam, "small")],
-            large_params=nets["large"],
-            small_params=nets["small"],
-            mid_cfg=NET_CONFIGS[(fam, "mid")],
-            mid_params=nets.get("mid"),
-        )
+            nets.update(load_roles(paths[1], fam, ("mid",), dev))
+        out[fam] = make_family(fam, nets["large"], nets["small"],
+                               mid_params=nets.get("mid"))
     return out

@@ -1,5 +1,5 @@
 """End-to-end serving driver (port of ``repro/launch/serve.py``; the
-paper's kind: multi-tenant diffusion service).  Loads the two trained
+paper's kind: multi-tenant diffusion service).  Trains or loads the two
 relay families, precomputes the arm-quality table for the workload on
 real latents, and runs the chosen scheduler against the Poisson request
 stream with pool queueing, on the continuous-batching runtime by default.
@@ -8,10 +8,12 @@ stream with pool queueing, on the continuous-batching runtime by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 \\
       --policy rr --device cpu
 
-The families come from the in-repo checkpoints (``--ckpt-dir``,
-``diffusion/families.py::load_families``): the port does not train.  The
-policy, the ``Executor`` and the engine run on ``--device`` (the card
-unless told otherwise).  Prints the JSON summary of the served records.
+The families come from ``--ckpt-dir`` (the in-repo checkpoints by
+default); a family whose checkpoint is missing is trained there for
+``--train-steps`` steps first (``diffusion/train.py::get_or_train_families``).
+Training, the policy, the ``Executor`` and the engine run on ``--device``
+(the card unless told otherwise).  Prints the JSON summary of the served
+records.
 
 :func:`serve` is the tensor half on its own: the per-arm quality report
 of ``quality_table`` over the 11 arms or their compressed twins.
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.diffusion.families import load_families
+from repro_torch.diffusion.train import get_or_train_families
 from repro_torch.kernels import build
 from repro_torch.serving.arms import build_action_space
 from repro_torch.serving.executor import Executor
@@ -96,6 +99,9 @@ def resolve_runtime_config(runtime: str, no_compress: bool,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--requests", type=int, default=200)
+    ap.add_argument("--train-steps", type=int, default=1500,
+                    help="training steps of each net when a family's "
+                         "checkpoint is missing from --ckpt-dir")
     ap.add_argument("--mu", type=float, default=9.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--policy", default="rise",
@@ -135,7 +141,8 @@ def main(argv=None):
                     help="where the policy, the executor and the transport "
                          "run (cuda or cpu)")
     ap.add_argument("--ckpt-dir", default="results/ckpts",
-                    help="the trained families' checkpoints")
+                    help="the trained families' checkpoints (missing ones "
+                         "are trained and written here)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if args.telemetry_context and args.policy in ("ppo", "sac"):
@@ -150,8 +157,10 @@ def main(argv=None):
                                             make_requests, summarize)
 
     dev = resolve_device(args.device)
-    print("loading relay families...")
-    ex = Executor(load_families(args.ckpt_dir, device=dev), device=dev)
+    print("loading/training relay families...")
+    fams = get_or_train_families(args.ckpt_dir, steps=args.train_steps,
+                                 verbose=True, device=dev)
+    ex = Executor(fams, device=dev)
 
     cfg = SimConfig(n_requests=args.requests, mean_interarrival=args.mu,
                     seed=args.seed, telemetry_context=args.telemetry_context,

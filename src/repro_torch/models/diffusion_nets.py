@@ -9,7 +9,9 @@ Both keep the reference's ``(B, H, W, C)`` latent layout at ``forward``
 (the UNet permutes to NCHW inside) and take their weights from the
 reference checkpoints (:func:`repro_torch.training.checkpoint.params_from_jax`):
 conv kernels OIHW, dense weights ``(cin, cout)`` applied as ``x @ W``.
-Parameters start at zero; load a state dict before use.
+:func:`build_net`'s parameters start at zero and take no gradient; load a
+state dict before use.  :func:`init_net` draws a trainable net with the
+reference's initial distributions.
 """
 from __future__ import annotations
 
@@ -234,3 +236,35 @@ class MMDiT(nn.Module):
 
 def build_net(cfg: DiffNetConfig) -> nn.Module:
     return UNet(cfg) if cfg.kind == "unet" else MMDiT(cfg)
+
+
+# parameters the reference initializes to zero (adaLN-Zero style: FiLM,
+# the MMDiT's modulations and the output norm's gain)
+_ZERO_INIT = ("film", "ada_img", "ada_txt", "out_norm")
+
+
+def init_net(cfg: DiffNetConfig, generator: torch.Generator) -> nn.Module:
+    """A trainable net (every parameter ``requires_grad``) drawn from
+    ``generator`` (a CPU generator) with the reference's distributions
+    (``repro/models/diffusion_nets.py::init_net``): conv kernels N(0, 1) /
+    √(kh·kw·cin), dense weights N(0, 1) / √cin, ``pos`` N(0, 1)·0.02, and
+    zeros for every ``film``, ``ada_img``, ``ada_txt`` and ``out_norm``.
+    The draws follow the state dict's order; the port does not reproduce
+    the reference's bits."""
+    net = build_net(cfg)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in _ZERO_INIT:
+                p.zero_()
+                continue
+            draw = torch.randn(p.shape, generator=generator)
+            if leaf == "pos":
+                p.copy_(draw * 0.02)
+            elif p.ndim == 4:  # OIHW: fan-in kh·kw·cin
+                cout, cin, kh, kw = p.shape
+                p.copy_(draw * (1.0 / torch.sqrt(torch.tensor(
+                    float(kh * kw * cin)))))
+            else:  # (cin, cout)
+                p.copy_(draw / torch.sqrt(torch.tensor(float(p.shape[0]))))
+    return net.requires_grad_(True)

@@ -40,7 +40,7 @@ from repro_torch.core.program import (MERGE_NODE, SEGMENT_NODE, RelayGraph,
                                       RelayProgram, compile_plan,
                                       select_bound_pct)
 from repro_torch.core.relay import fused_emits, hop_roundtrip, merge_latents
-from repro_torch.device import resolve_device
+from repro_torch.device import keep_fp32, resolve_device
 from repro_torch.diffusion import synth
 from repro_torch.diffusion.families import Family, role_fn, role_params
 from repro_torch.quantization import latent_roundtrip, relative_deviation
@@ -77,12 +77,7 @@ class Executor:
                  arms: Optional[Sequence[Arm]] = None,
                  fused_boundary: bool = True, device=None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # cuDNN runs fp32 convolutions in TF32 by default, and TF32
-            # keeps about 3 decimal digits; the port is held to the fp32
-            # reference, so both TF32 switches stay off.
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        keep_fp32(self.device)
         self.families = families
         self.arms = tuple(arms) if arms is not None else ARMS
         self.fused_boundary = bool(fused_boundary)

@@ -1,17 +1,20 @@
-"""Reader of the reference's checkpoints (``repro/training/checkpoint.py``
-writes them) and the weight carry-over into the port's modules.
+"""Reader and writer of the reference's checkpoint format
+(``repro/training/checkpoint.py``) and the weight carry-over between its
+parameter trees and the port's modules.
 
 A checkpoint is msgpack of ``{"meta": {...}, "arrays": {key: {"dtype",
 "shape", "data"}}}`` with keys the ``/``-joined parameter-tree paths
-(``"large/down/0/conv1"``); ``None`` leaves (the UNet's identity ``skip``)
-are absent.  The decoder below covers the msgpack types those files use,
-so the port needs no msgpack package.
+(``"large/down/0/conv1"``) in the tree's flatten order; ``None`` leaves
+(the UNet's identity ``skip``) are absent.  The decoder and encoder below
+cover the msgpack types those files use, so the port needs no msgpack
+package; :func:`save` writes the bytes the reference's ``save`` writes.
 """
 from __future__ import annotations
 
+import os
 import struct
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -80,6 +83,92 @@ def unpackb(data: bytes):
     return value
 
 
+def _head(out: bytearray, n: int, fix: Optional[int], fix_max: int,
+          sized) -> None:
+    """A msgpack length header: the fix form while ``n`` fits it, else the
+    smallest of ``sized`` ((type byte, struct code), narrowest first)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for byte, code in sized:
+        if n < 1 << (8 * struct.calcsize(code)):
+            out.append(byte)
+            out += struct.pack(code, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _encode(obj, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xc0)
+    elif isinstance(obj, bool):
+        raise TypeError("bool is not in the checkpoint format")
+    elif isinstance(obj, int):
+        if -32 <= obj <= 0x7f:  # a positive or negative fixint
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+            return
+        # the narrowest uint (0xcc-0xcf) or int (0xd0-0xd3) that holds it
+        for byte in range(0xcc, 0xd0) if obj > 0 else range(0xd0, 0xd4):
+            try:
+                packed = struct.pack(_INTS[byte], obj)
+            except struct.error:
+                continue
+            out.append(byte)
+            out += packed
+            return
+        raise ValueError(f"int {obj} does not fit msgpack")
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _head(out, len(data), 0xa0, 0x1f,
+              ((0xd9, ">B"), (0xda, ">H"), (0xdb, ">I")))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        _head(out, len(obj), None, 0,
+              ((0xc4, ">B"), (0xc5, ">H"), (0xc6, ">I")))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 0x0f, ((0xdc, ">H"), (0xdd, ">I")))
+        for v in obj:
+            _encode(v, out)
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 0x0f, ((0xde, ">H"), (0xdf, ">I")))
+        for k, v in obj.items():
+            _encode(k, out)
+            _encode(v, out)
+    else:
+        raise TypeError(f"{type(obj).__name__} is not in the checkpoint "
+                        "format")
+
+
+def packb(obj) -> bytes:
+    """Encode ``obj`` (None, int, str, bytes, lists and dicts of them) as
+    ``msgpack.packb`` does: the narrowest form of each value, dicts in
+    their insertion order."""
+    out = bytearray()
+    _encode(obj, out)
+    return bytes(out)
+
+
+def save(path, flat: Dict[str, np.ndarray], meta: Optional[dict] = None
+         ) -> Path:
+    """Write ``flat`` (``{"large/down/0/conv1": ndarray, ...}`` in the
+    reference's flatten order, as :func:`params_to_jax` gives) as the
+    reference's ``save`` does: the same payload, written to a ``.tmp``
+    file and moved over ``path``."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {
+        "meta": meta or {},
+        "arrays": {k: {"dtype": str(a.dtype), "shape": list(a.shape),
+                       "data": np.ascontiguousarray(a).tobytes()}
+                   for k, a in flat.items()},
+    }
+    tmp = path.with_suffix(".tmp")
+    tmp.write_bytes(packb(payload))
+    os.replace(tmp, path)
+    return path
+
+
 def load_flat(path) -> Dict[str, np.ndarray]:
     """``{"large/down/0/conv1": ndarray, ...}`` from a checkpoint file."""
     payload = unpackb(Path(path).read_bytes())
@@ -105,6 +194,26 @@ def params_from_jax(flat: Dict[str, np.ndarray], cfg) -> Dict[str, torch.Tensor]
         if cfg.kind == "unet" and t.ndim == 4:
             t = t.permute(3, 2, 0, 1).contiguous()
         out[key.replace("/", ".")] = t
+    return out
+
+
+def _flatten_key(name: str) -> tuple:
+    """A parameter path's place in the reference's flatten order: a dict's
+    keys sorted, a list's items by index."""
+    return tuple(int(p) if p.isdigit() else p for p in name.split("."))
+
+
+def params_to_jax(state_dict, cfg) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_jax`: one net's flat reference
+    parameters (fp32 numpy on the host) from the port's state dict, ``.``
+    names as ``/`` paths, UNet conv kernels from OIHW back to HWIO, in the
+    reference's flatten order (``jax.tree_util.tree_flatten_with_path``)."""
+    out = {}
+    for name in sorted(state_dict, key=_flatten_key):
+        t = state_dict[name].detach().to("cpu", torch.float32)
+        if cfg.kind == "unet" and t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)
+        out[name.replace(".", "/")] = np.ascontiguousarray(t.numpy())
     return out
 
 

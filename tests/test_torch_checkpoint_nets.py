@@ -1,6 +1,9 @@
-"""The port's checkpoint reader and denoisers against the reference: the
-built-in msgpack decoder against the ``msgpack`` package on every
-committed checkpoint, and all six (family, role) nets with the trained
+"""The port's checkpoint reader and writer and its denoisers against the
+reference: the built-in msgpack decoder against the ``msgpack`` package on
+every committed checkpoint; the writer (``checkpoint.save``) rewriting
+every committed checkpoint byte for byte from what the reader gives, and
+``params_to_jax`` inverting ``params_from_jax`` in keys, order and bytes
+for all six nets; and all six (family, role) nets with the trained
 weights against the JAX nets on the same numpy inputs.
 
 Tolerance: fp32 relative error (max |Δ| over max |reference|) ≤ 1e-5.
@@ -76,6 +79,37 @@ def test_decoder_scalars_and_errors():
         tck.unpackb(msgpack.packb(1) + b"\x00")
     with pytest.raises(ValueError, match="unsupported"):
         tck.unpackb(b"\xca\x00\x00\x00\x00")  # a float: not in the files
+
+
+@pytest.mark.parametrize("path", CKPTS, ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_save_rewrites_checkpoint_byte_for_byte(path, tmp_path):
+    out = tck.save(tmp_path / "sub" / path.name, tck.load_flat(path))
+    assert out.read_bytes() == path.read_bytes()
+    assert sorted(p.name for p in out.parent.iterdir()) == [path.name]
+
+
+def test_encoder_matches_msgpack():
+    doc = {"a": [0, 127, 128, 255, 256, 65535, 65536, 2 ** 40, -1, -32, -33,
+                 -128, -129, -2 ** 20, -2 ** 40, None],
+           "b": b"\x00" * 300, "c": b"", "d": b"\x01" * 70000,
+           "s" * 40: "x" * 70000, "e": {}, "f": [[]] * 20,
+           "g": {str(i): i for i in range(20)}}
+    assert tck.packb(doc) == msgpack.packb(doc)
+    assert tck.unpackb(tck.packb(doc)) == doc
+    for bad in (True, 1.5, {1, 2}):
+        with pytest.raises(TypeError):
+            tck.packb(bad)
+
+
+@pytest.mark.parametrize("fam,role", NETS)
+def test_params_to_jax_inverts_params_from_jax(fam, role):
+    cfg = tfam.NET_CONFIGS[(fam, role)]
+    flat = net_flat(fam, role)
+    back = tck.params_to_jax(tck.params_from_jax(flat, cfg), cfg)
+    assert list(back) == list(flat)
+    for k, a in flat.items():
+        assert back[k].dtype == a.dtype and back[k].shape == a.shape, k
+        assert back[k].tobytes() == a.tobytes(), k
 
 
 @pytest.mark.parametrize("fam,role", NETS)

@@ -6,8 +6,10 @@ RecurrentGemma), the scheduler (RISE, PPO, the handoff transport, one
 federated gossip, the LinUCB snapshot), the parts the engines stand on
 (the event queue, the aggregator, the telemetry, the serving context, the
 synthetic workload), both serving engines (8 requests, raw and
-compressed) and a two-cluster fleet (locality routing, autoscaled,
-federated RISE gossiping) run on the CPU, in a process where ``jax`` and
+compressed), a two-cluster fleet (locality routing, autoscaled,
+federated RISE gossiping), one training step of a narrow denoiser with
+its checkpoint written and read back, and the four Table III baselines on
+toy nets run on the CPU, in a process where ``jax`` and
 the reference package ``repro`` cannot be imported; no port source
 imports either."""
 from __future__ import annotations
@@ -242,6 +244,40 @@ assert [r.rid for r in res.records] == list(range(8))
 assert sorted(res.assignments) == list(range(8)) and res.n_gossips >= 1
 assert float(eng.federation.base.counts.sum()) >= 1.0
 assert all(t.autoscale.ticks > 0 for t in res.telemetry)
+
+# diffusion training: one step of a narrow net, a checkpoint written and
+# read back; the Table III baselines on toy nets
+import tempfile
+
+from repro_torch.core import accel_baselines as ab
+from repro_torch.diffusion import train
+from repro_torch.diffusion.synth import batch as synth_batch
+from repro_torch.models.diffusion_nets import DiffNetConfig, init_net
+from repro_torch.training import checkpoint as ck
+
+narrow = DiffNetConfig("mmdit", width=8, depth=1)
+gen = torch.Generator().manual_seed(0)
+net = init_net(narrow, gen)
+opt = train.Adam(net)
+_, x0, c0 = synth_batch(range(4), "F3")
+x0, c0 = torch.from_numpy(x0), torch.from_numpy(c0)
+t, noise = train._draw_f3(gen, x0)
+before = net.patch.detach().clone()
+loss = train.train_step(opt, lambda: train._loss_f3(net, x0, c0, t, noise),
+                        1, 1, 3e-3)
+assert torch.isfinite(loss) and not torch.equal(net.patch, before)
+with tempfile.TemporaryDirectory() as tmp:
+    flat = ck.params_to_jax(net.state_dict(), narrow)
+    back = ck.load_flat(ck.save(f"{tmp}/n.ckpt", flat))
+    assert list(back) == list(flat)
+for fam in ("XL", "F3"):
+    spec = SPECS[fam]()
+    for sample in (ab.full_sample, ab.deepcache_sample, ab.tgate_sample,
+                   ab.sada_sample):
+        out, evals = sample(spec.kind, toy, None, x, spec.sigmas_edge,
+                            torch.zeros(2, 16))
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        assert 0 < evals <= len(spec.sigmas_edge) - 1
 print("ok", len(names))
 """
 

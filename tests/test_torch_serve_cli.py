@@ -82,6 +82,18 @@ def test_summary_equals_reference(reference_summary, monkeypatch):
     assert worst <= SUMMARY_RTOL, worst
 
 
+def test_train_steps_trains_writes_and_serves(tmp_path):
+    """A ``--ckpt-dir`` without checkpoints: ``main`` trains both families
+    for ``--train-steps`` steps, writes their checkpoints, and serves."""
+    summary = tserve.main(["--ckpt-dir", str(tmp_path), "--train-steps", "2",
+                           "--requests", "4", "--device", "cpu",
+                           "--policy", "rr"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "diffusion_F3.ckpt", "diffusion_XL.ckpt"]
+    assert sum(summary["arm_histogram"]) == 4
+    assert np.isfinite(summary["total_reward"])
+
+
 def test_telemetry_context_refused_for_offline_baselines(capsys):
     for main in (jserve.main, tserve.main):
         with pytest.raises(SystemExit) as err:
