@@ -8,8 +8,9 @@ It drives the port's main paths — the diffusion relay executor on linear
 and DAG arms, the scheduler's decision loop over the executor's quality
 table, the sequential serving engine, the continuous-batching runtime
 and a fleet of three clusters over that table, the serving driver end to
-end, diffusion training and the Table III baselines, the LM prefix relay
-at ``qwen3-4b`` width and the same relay at ``recurrentgemma-9b`` width —
+end, diffusion training and the Table III baselines, LM training on
+five configurations, the LM prefix relay at ``qwen3-4b`` width and the
+same relay at ``recurrentgemma-9b`` width —
 and holds every CUDA kernel against its plain PyTorch version.  Phases,
 each failing the run (non-zero exit, no result line) on any mismatch:
 
@@ -71,6 +72,8 @@ each failing the run (non-zero exit, no result line) on any mismatch:
    slots and the ring of 2048 at kv_len 37, scoring (S = T = 128, causal,
    window 2048), and fp32 cases at head dim 256; scoring at S = 70
    (ragged tiles) at head dims 128 and 256, plain and with a window of 24;
+   ``gemma2-27b``'s training shape (q (2, 32, 64, 128) over 16 KV heads,
+   softcap 50, causal, window 16 and global);
 7. flash attention's times per shape (both models' decode and scoring,
    4096, the two long-cache decodes, in the model's layout): the
    kernel's, the plain version's and SDPA's beside the bound;
@@ -254,16 +257,37 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     threshold reported as a tie), the interior step 50 times per F3 call
     and never on XL, ms per request in alternating turns; (e) seconds per
     training step of each net on each device; nothing under ``results/``
-    changes.
+    changes;
+21. LM training (``training/{optimizer,train_step}.py``,
+    ``launch/train.py``): (a) one step of each of the five
+    configurations' ``make_reduced`` and of ``granite-8b`` at full width
+    (2 layers, 2 x 64 tokens), fp32, from the same weights and batch, card
+    against ``device="cpu"``: the loss, every parameter's gradient (none
+    ``None``; each within ``TRAIN_GRAD_RTOL``), the step's loss,
+    ``grad_norm`` and rate, the parameters after it (as phase 20, the
+    floor counted), seconds per step on each device; (b) ``gemma2-27b`` at
+    full width in bf16, 2 layers (the local window cut to 16 so that it
+    masks inside 64 tokens), the tied 256k head through the chunked loss,
+    ``remat`` on: 10 steps on one batch, the loss finite and falling,
+    exactly one scoring-kernel launch per attention layer per forward and
+    per recompute, every weight moved, and each layer's flash call of the
+    first forward (softcap 50; window 16, then global) replayed on its
+    own operands within ``FLASH_TOL`` of the plain version; seconds per
+    step; (c) ``launch.train``'s ``main`` on
+    the card, 8 steps, and 4 steps resumed to 8: the losses within 1e-5
+    (bits equal or not, printed); flash attention and the scan launch
+    exactly once per attention or RG-LRU layer per forward throughout (a
+    backward is the plain versions' VJP and launches neither).
 
-The phases run in the order 1-7, 11, 15-20, 8-10, 12-14.  Every
+The phases run in the order 1-7, 11, 15-21, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
 over phases 3 and 15-20; flash attention's over phases 8, the traced
-relay included, and 12), the card's line, and last ``{"ok": true,
+relay included, 12 and 21; the scan's over 12 and 21), the card's line,
+and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -434,6 +458,32 @@ TRAIN_PARAM_RTOL, GRAD_FLOOR, EPS_FLOOR, FLOOR_SHARE = 1e-5, 1e-4, 1e-6, 0.15
 BASELINES = ("full", "deepcache", "tgate", "sada")
 BASELINE_REQUESTS, BASELINE_TURNS = 8, 3
 SADA_THRESHOLD, SADA_TIE = 0.12, 1e-4
+# phase 21, LM training: (a) one step card against CPU, fp32, of each
+# configuration's make_reduced (LM_TRAIN_ROWS sequences of LM_TRAIN_SEQ
+# tokens) and of granite-8b at full width, 2 layers, 2 x 64 tokens: the
+# loss and gradients as phase 20 holds them (TRAIN_LOSS_RTOL,
+# TRAIN_GRAD_RTOL), the parameters after the step within TRAIN_PARAM_RTOL
+# of the tensor's largest plus twice the update difference the two
+# devices' gradients predict (phase 20's floor alone read 4.3e-5 off it
+# at full width: elements just above it still follow their gradients'
+# last bits; H100 80GB HBM3, 700 W); seconds per step of
+# LM_TIMED_STEPS more steps on the card, of the checked step on the CPU;
+# (b) gemma2-27b at full width,
+# bf16, 2 layers (local window cut to LM_BF16_WINDOW, global), tied 256k
+# head, ce_chunk LM_BF16_CHUNK, remat on, LM_BF16_STEPS steps on one
+# batch of 2 x 64 tokens (the loss must fall); (c) launch/train.py's
+# resume case (the reference's tests/test_training.py) on the card
+LM_TRAIN_NAMES = ("gemma2-27b", "granite-8b", "qwen3-4b", RG_NAME,
+                  "stablelm-1.6b")
+LM_TRAIN_ROWS, LM_TRAIN_SEQ = 4, 16
+LM_FULL_NAME, LM_FULL_LAYERS, LM_FULL_ROWS, LM_FULL_SEQ = (
+    "granite-8b", 2, 2, 64)
+LM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+LM_TIMED_STEPS = 5
+LM_BF16_NAME, LM_BF16_WINDOW, LM_BF16_CHUNK, LM_BF16_STEPS = (
+    "gemma2-27b", 16, 16, 10)
+LAUNCH_ARGS = ["--arch", "stablelm-1.6b", "--batch", "2", "--seq", "16",
+               "--ckpt-every", "4"]
 
 
 def check(ok: bool, what: str) -> None:
@@ -675,6 +725,15 @@ def flash_inputs(gen, dev, b, h, kv, s, t, d, dtype, model_layout=False):
             for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
 
 
+def flash_share(out, ref) -> tuple:
+    """``(max |out - ref|, the largest share of its tolerance that an
+    element uses)``, the tolerance ``FLASH_TOL`` of ``out``'s dtype."""
+    atol, rtol = FLASH_TOL[out.dtype]
+    diff = (out.double() - ref.double()).abs()
+    return (float(diff.max()),
+            float((diff / (atol + rtol * ref.double().abs())).max()))
+
+
 def check_flash(gen, dev) -> float:
     """Phase 6: the kernels against their plain version, each case run
     twice and equal to itself bit for bit; returns max |err|."""
@@ -720,6 +779,12 @@ def check_flash(gen, dev) -> float:
     cases += [(2, h, kv, 70, 70, d, True, w, None, None, torch.bfloat16,
                True) for h, kv, d in ((32, 8, 128), (16, 1, 256))
               for w in (None, 24)]
+    # gemma2-27b's training shape (phase 21 (b)): 32 query heads over 16
+    # KV heads of 128, attention softcap 50, on the scoring kernel, the
+    # local layer's window cut to LM_BF16_WINDOW and the global layer
+    cases += [(LM_FULL_ROWS, 32, 16, LM_FULL_SEQ, LM_FULL_SEQ, 128, True, w,
+               50.0, None, torch.bfloat16, True)
+              for w in (LM_BF16_WINDOW, None)]
     worst, used = 0.0, {}
     for (b, h, kv, s, t, d, causal, window, cap, kv_len, dtype,
          layout) in cases:
@@ -732,12 +797,9 @@ def check_flash(gen, dev) -> float:
         check(torch.equal(out, again),
               f"flash_attention {(b, h, kv, s, t, d, causal, window, cap, kv_len)} "
               f"{dtype}: two calls differ")
-        diff = (out.double() - ref.double()).abs()
-        err = float(diff.max())
+        err, share = flash_share(out, ref)
         worst = max(worst, err)
         atol, rtol = FLASH_TOL[dtype]
-        # the largest share of its tolerance that an element uses
-        share = float((diff / (atol + rtol * ref.double().abs())).max())
         used[str(dtype)] = max(used.get(str(dtype), 0.0), share)
         check(share <= 1.0 and out.dtype == dtype
               and torch.isfinite(out).all(),
@@ -2856,6 +2918,322 @@ def train_phase(dev) -> dict:
     return total
 
 
+def lm_train_batch(cfg, rows: int, seq: int, step: int, where) -> dict:
+    """Step ``step`` of the token pipeline at ``cfg``'s vocabulary, as
+    ``launch/train.py`` feeds it, on ``where``."""
+    from repro_torch.training.data import DataConfig, TokenPipeline
+
+    toks, labels = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq,
+        global_batch=rows)).batch(step)
+    return {"tokens": torch.from_numpy(toks).to(where),
+            "labels": torch.from_numpy(labels).to(where)}
+
+
+def lm_launches(cfg, forwards: int) -> dict:
+    """The kernel launches of ``forwards`` training forwards of ``cfg``:
+    flash attention once per attention layer, the scan once per RG-LRU
+    layer (a backward launches neither: it is the plain versions' VJP)."""
+    return {"flash_attention": mixer_layers(cfg, "attn") * forwards,
+            "rglru_scan": mixer_layers(cfg, "rglru") * forwards}
+
+
+def lm_train_step_checks(dev, total) -> dict:
+    """Phase 21 (a): one training step card against ``device="cpu"`` from
+    the same weights (drawn on the card, copied) and batch, fp32: the
+    loss, every parameter's gradient (none ``None`` on either device, each
+    within ``TRAIN_GRAD_RTOL`` of the CPU's, max |Δ| over max |CPU|), the
+    step's loss, ``grad_norm`` and ``lr``, and the parameters after it
+    (within ``TRAIN_PARAM_RTOL`` of the tensor's largest plus twice the
+    update difference the two gradients predict; phase 20's floor
+    statistics printed beside); seconds per step on each device.  The
+    comparisons run on the card in fp64.  The kernels launch as
+    :func:`lm_launches` counts, exactly."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.device import keep_fp32
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    keep_fp32(dev)  # as launch/train.py does: fp32 products
+    cpu = torch.device("cpu")
+    cases = [(name, configs.make_reduced(configs.get_config(name)),
+              LM_TRAIN_ROWS, LM_TRAIN_SEQ) for name in LM_TRAIN_NAMES]
+    cases.append((f"{LM_FULL_NAME}/full", configs.get_config(
+        LM_FULL_NAME).replace(n_layers=LM_FULL_LAYERS, dtype="float32"),
+        LM_FULL_ROWS, LM_FULL_SEQ))
+    c = opt.OptConfig(**LM_TRAIN_OPT)
+    out = {}
+    for k, (what, cfg, rows, seq) in enumerate(cases):
+        t_case = time.perf_counter()
+        card = tr.init_model(cfg, torch.Generator(device=dev)
+                             .manual_seed(40 + k), dev)
+        models = {"card": card, "cpu": copy.deepcopy(card).to(cpu)}
+        places = {"card": dev, "cpu": cpu}
+        batches = {key: lm_train_batch(cfg, rows, seq, k, where)
+                   for key, where in places.items()}
+        loss_fn = ts.make_loss_fn(cfg, remat=False)
+        read, steps, seconds = {}, {}, {}
+        for key in ("cpu", "card"):
+            model = models[key]
+            build.reset_launches()
+            model.requires_grad_(True)
+            loss, _ = loss_fn(model, batches[key])
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            read[key] = (float(loss.detach()), dict(zip(names, grads)))
+            # the whole step, from the same weights (timed on the CPU)
+            step = ts.make_train_step(cfg, c, remat=False)
+            state = opt.adamw_init(dict(model.named_parameters()), c)
+            t0 = time.perf_counter()
+            _, state, m = step(model, state, batches[key])
+            steps[key] = ({n: p.detach().clone() for n, p in
+                           model.named_parameters()},
+                          {n: float(v) for n, v in m.items()})
+            seconds[key] = time.perf_counter() - t0
+            # on the card, seconds per step over more steps on the batch
+            reps = LM_TIMED_STEPS if key == "card" else 0
+            if reps:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    _, state, m = step(model, state, batches[key])
+                float(m["loss"])
+                seconds[key] = (time.perf_counter() - t0) / reps
+            if key == "card":  # the gradients' forward, the step's, reps
+                got = {n: build.LAUNCHES[n] for n in
+                       ("flash_attention", "rglru_scan")}
+                want = lm_launches(cfg, 2 + reps)
+                check(got == want, f"{what}: launches {got}, want {want}")
+                for n in got:
+                    total[n] += got[n]
+        (l_cpu, g_cpu), (l_card, g_card) = read["cpu"], read["card"]
+        missing = sorted(n for n in g_cpu if g_cpu[n] is None
+                         or g_card[n] is None)
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        grad_rel = {n: float((g_card[n].double() - g.to(dev).double())
+                             .abs().max() / g.to(dev).double().abs().max()
+                             .clamp_min(1e-30))
+                    for n, g in g_cpu.items() if n not in missing}
+        (p_cpu, m_cpu), (p_card, m_card) = steps["cpu"], steps["card"]
+        metric_rel = {n: abs(m_card[n] - m_cpu[n]) / abs(m_cpu[n])
+                      for n in ("loss", "grad_norm")}
+        lr_ulps = ulps(m_card["lr"], m_cpu["lr"])
+        # Adam's first update is lr·x/(|x| + eps), x the clipped gradient:
+        # each element is held within TRAIN_PARAM_RTOL of its tensor's
+        # largest |p| plus twice the difference its two gradients predict
+        # (large only where |x| is near eps)
+        def update(g, norm):  # on the card, in fp64
+            x = g.detach().to(dev).double() * min(
+                1.0, c.grad_clip / (norm + 1e-9))
+            return x / (x.abs() + c.eps)
+        worst, excess, floor, beyond = 0.0, 0.0, 0, 0
+        for name, p in p_cpu.items():
+            if name in missing:
+                continue
+            p = p.to(dev).double()
+            scale = float(p.abs().max())
+            err = (p_card[name].double() - p).abs()
+            pred = m_cpu["lr"] * (update(g_card[name], m_card["grad_norm"])
+                                  - update(g_cpu[name], m_cpu["grad_norm"])
+                                  ).abs()
+            excess = max(excess, float((err / (TRAIN_PARAM_RTOL * scale
+                                                + 2 * pred)).max()))
+            g = g_cpu[name].detach().to(dev).abs()
+            low = g < max(GRAD_FLOOR * float(g.max()), EPS_FLOOR)
+            if (~low).any():
+                worst = max(worst, float(err[~low].max()) / scale)
+            floor += int(low.sum())
+            beyond += int((err[low] > TRAIN_PARAM_RTOL * scale).sum())
+        out[what] = {"loss_rel": loss_rel,
+                     "grad_rel": max(grad_rel.values()),
+                     "grad_rel_at": max(grad_rel, key=grad_rel.get),
+                     "params_with_grad": len(grad_rel),
+                     "step_rel": metric_rel, "lr_ulps": lr_ulps,
+                     "param_bound_share": excess,
+                     "param_rel_off_floor": worst, "floor_elements": floor,
+                     "floor_beyond": beyond,
+                     "card_s": seconds["card"], "cpu_s": seconds["cpu"],
+                     "case_s": time.perf_counter() - t_case}
+        print(f"LM training step card vs CPU, {what}: "
+              f"{json.dumps(out[what])}")
+        check(missing == [], f"{what}: parameters without a gradient "
+              f"{missing}")
+        check(loss_rel <= TRAIN_LOSS_RTOL,
+              f"{what}: loss card {l_card} vs CPU {l_cpu}")
+        check(max(grad_rel.values()) <= TRAIN_GRAD_RTOL,
+              f"{what}: gradient card vs CPU rel {max(grad_rel.values())}")
+        check(max(metric_rel.values()) <= TRAIN_LOSS_RTOL,
+              f"{what}: step metrics card {m_card} vs CPU {m_cpu}")
+        check(lr_ulps <= TRAIN_ADAM_ULPS, f"{what}: lr {lr_ulps} ulps")
+        check(excess <= 1.0, f"{what}: parameters after a step beyond their "
+              f"bound ({excess} of it)")
+        del models, card, read, steps
+        torch.cuda.empty_cache()
+    print(f"LM training step card vs CPU: fp32; reduced at "
+          f"{LM_TRAIN_ROWS} x {LM_TRAIN_SEQ} tokens, {LM_FULL_NAME} full "
+          f"width {LM_FULL_LAYERS} layers at {LM_FULL_ROWS} x "
+          f"{LM_FULL_SEQ}; seconds per step: the card over "
+          f"{LM_TIMED_STEPS} more steps, the CPU of the checked step")
+    return out
+
+
+def lm_bf16_training(dev, total) -> dict:
+    """Phase 21 (b): ``gemma2-27b`` at full width in bf16 on the card, 2
+    layers (its local window cut to ``LM_BF16_WINDOW``, so that the mask
+    bites inside 64 tokens, then global), the tied 256k head through the
+    chunked loss, ``remat`` on: ``LM_BF16_STEPS`` steps on one batch.  The
+    loss stays finite and falls; every step launches the scoring kernel
+    once per attention layer in the forward and once more in ``remat``'s
+    recompute, and no other flash kernel; every weight moves.  Each
+    attention layer's flash call of the first forward is kept (its
+    operands, in the model's strided layout, and its keywords) and, after
+    the counted steps, launched again and held to the plain version within
+    ``FLASH_TOL``: the scoring kernel's softcap and window on the operands
+    training gives it."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    base = configs.get_config(LM_BF16_NAME)
+    pattern = tuple(dataclasses.replace(
+        spec, window=LM_BF16_WINDOW if spec.window else None)
+        for spec in base.pattern)
+    cfg = base.replace(n_layers=2, pattern=pattern)
+    model = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(50),
+                          dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    c = opt.OptConfig(**dict(LM_TRAIN_OPT, total_steps=LM_BF16_STEPS))
+    state = opt.adamw_init(dict(model.named_parameters()), c)
+    step = ts.make_train_step(cfg, c, remat=True, ce_chunk=LM_BF16_CHUNK)
+    batch = lm_train_batch(cfg, LM_FULL_ROWS, LM_FULL_SEQ, 0, dev)
+    calls, n_attn = [], mixer_layers(cfg, "attn")
+
+    def keep(q, k, v, **kw):  # the first forward's calls, then the kernel
+        if len(calls) < n_attn:
+            calls.append(([x.detach() for x in (q, k, v)], kw))
+        return flash_ops.flash_attention(q, k, v, **kw)
+
+    build.reset_launches()
+    flash_ops.reset_variant_launches()
+    losses, times = [], []
+    attn.flash_attention = keep
+    try:
+        for _ in range(LM_BF16_STEPS):
+            (_, state, m), ms = host_timed(lambda: step(model, state, batch))
+            losses.append(float(m["loss"]))
+            times.append(ms / 1e3)
+    finally:
+        attn.flash_attention = flash_ops.flash_attention
+    got = {n: build.LAUNCHES[n] for n in ("flash_attention", "rglru_scan")}
+    want = lm_launches(cfg, 2 * LM_BF16_STEPS)  # forward + recompute
+    check(got == want, f"{LM_BF16_NAME} bf16: launches {got}, want {want}")
+    variants = dict(flash_ops.VARIANT_LAUNCHES)
+    check(variants == {"simt": 0, "decode": 0,
+                       "scoring": want["flash_attention"]},
+          f"{LM_BF16_NAME} bf16: flash kernels {variants}")
+    for n in got:
+        total[n] += got[n]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{LM_BF16_NAME} bf16: losses {losses}")
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()),
+          f"{LM_BF16_NAME}: a weight left bf16")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    check(still == [], f"{LM_BF16_NAME} bf16: weights unchanged by "
+          f"{LM_BF16_STEPS} steps: {still}")
+    del before
+    # the kept calls against the plain version (not counted launches)
+    windows = [spec.window for spec in tr.layer_specs(cfg)]
+    check([kw["window"] for _, kw in calls] == windows
+          and all(kw["softcap"] == cfg.attn_softcap for _, kw in calls),
+          f"{LM_BF16_NAME} bf16: kept flash calls {[kw for _, kw in calls]}")
+    replay = []
+    for (q, k, v), kw in calls:
+        check(flash_ops.plan(q, k, v).variant == "scoring",
+              f"{LM_BF16_NAME} bf16: {kw} not on the scoring kernel")
+        out = flash_ops.flash_attention(q, k, v, **kw)
+        err, share = flash_share(out, flash_attention_ref(q, k, v, **kw))
+        replay.append({"window": kw["window"], "softcap": kw["softcap"],
+                       "max_abs_err": err, "share_of_tol": share})
+        check(share <= 1.0 and torch.isfinite(out).all(),
+              f"{LM_BF16_NAME} bf16: flash {kw} max |err| {err}, {share} "
+              f"of FLASH_TOL")
+    out = {"params_b": cm.count_params(model) / 1e9, "losses": losses,
+           "first_step_s": times[0],
+           "step_s": float(np.median(times[1:])), "launches": got,
+           "flash_variants": variants, "flash_replay": replay}
+    print(f"{LM_BF16_NAME} bf16 training on the card (full width, 2 layers, "
+          f"window {LM_BF16_WINDOW}, ce_chunk {LM_BF16_CHUNK}, remat, "
+          f"{LM_FULL_ROWS} x {LM_FULL_SEQ} tokens): {json.dumps(out)}")
+    del model, state, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_launch_resume(dev, total) -> dict:
+    """Phase 21 (c): ``python -m repro_torch.launch.train``'s ``main`` on
+    the card (its default device): 8 steps, then 4 steps into another
+    directory resumed to 8 (the reference's resume test); the resumed
+    losses within its ``rtol=1e-5`` of the uninterrupted run's, and
+    whether the bits are equal (printed)."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as launch_train
+
+    cfg = configs.make_reduced(configs.get_config("stablelm-1.6b"))
+    build.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        full = launch_train.main(LAUNCH_ARGS + ["--steps", "8",
+                                                "--ckpt-dir", f"{tmp}/a"])
+        seconds = time.perf_counter() - t0
+        launch_train.main(LAUNCH_ARGS + ["--steps", "4",
+                                         "--ckpt-dir", f"{tmp}/b"])
+        resumed = launch_train.main(LAUNCH_ARGS + [
+            "--steps", "8", "--resume", "--ckpt-dir", f"{tmp}/b"])
+        files = sorted(p.name for p in Path(f"{tmp}/b/stablelm-1.6b")
+                       .iterdir())
+    got = {n: build.LAUNCHES[n] for n in ("flash_attention", "rglru_scan")}
+    want = lm_launches(cfg, 16)
+    check(got == want, f"launch.train: launches {got}, want {want}")
+    for n in got:
+        total[n] += got[n]
+    rel = float(np.max(np.abs(np.array(resumed) / np.array(full[4:]) - 1)))
+    check(len(resumed) == 4 and rel <= 1e-5,
+          f"launch.train resume: {resumed} vs {full[4:]}")
+    check(files == ["latest", "step_00000004.ckpt", "step_00000008.ckpt"],
+          f"launch.train checkpoints {files}")
+    out = {"losses": full, "resumed": resumed, "resume_rel": rel,
+           "bits_equal": resumed == full[4:], "run_s": seconds}
+    print(f"launch.train on the card (stablelm-1.6b reduced, 8 steps; 4 + "
+          f"resumed to 8): {json.dumps(out)}")
+    return out
+
+
+def lm_train_phase(dev) -> dict:
+    """Phase 21: LM training on the card, (a) card against CPU, (b) bf16
+    at full width, (c) the driver and its resume.  Returns the phase's
+    kernel launches."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    lm_train_step_checks(dev, total)
+    lm_bf16_training(dev, total)
+    lm_launch_resume(dev, total)
+    print(f"LM training phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+    return total
+
+
 def mixer_layers(cfg, mixer: str) -> int:
     """The number of layers of ``cfg`` whose mixer is ``mixer``."""
     from repro_torch.models import transformer as tr
@@ -3725,6 +4103,9 @@ def main() -> int:
     for name in DIFFUSION_KERNELS:
         launches[name] += train_total[name]
 
+    # ---- 21. LM training ---------------------------------------------------
+    lm_train_total = lm_train_phase(dev)
+
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs
 
@@ -3750,8 +4131,10 @@ def main() -> int:
     del large, small
 
     launches["flash_attention"] = (qwen_launches["flash_attention"]
-                                   + rg_launches["flash_attention"])
-    launches["rglru_scan"] = rg_launches["rglru_scan"]
+                                   + rg_launches["flash_attention"]
+                                   + lm_train_total["flash_attention"])
+    launches["rglru_scan"] = (rg_launches["rglru_scan"]
+                              + lm_train_total["rglru_scan"])
     # the rows of the shapes launched most on the LM paths: qwen3-4b's
     # decode, and the RG-LRU scan's scoring shape
     main_times["flash_attention"] = {

@@ -12,7 +12,10 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = {
+    "gemma2-27b": "gemma2_27b",
+    "stablelm-1.6b": "stablelm_1_6b",
     "qwen3-4b": "qwen3_4b",
+    "granite-8b": "granite_8b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 

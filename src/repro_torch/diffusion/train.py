@@ -35,6 +35,7 @@ from repro_torch.diffusion.families import (NET_CONFIGS, SPECS,
                                             make_family)
 from repro_torch.models import diffusion_nets as dn
 from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.optimizer import bias_correction
 
 SIGMA_MIN, SIGMA_MAX = 0.03, 10.0
 
@@ -138,11 +139,6 @@ def cosine_lr(base_lr: float, i: torch.Tensor, steps: int) -> torch.Tensor:
     """The reference's schedule base·(0.1 + 0.9·½(1 + cos(π·i/steps))) in
     fp32 from the fp32 step ``i``."""
     return base_lr * (0.1 + 0.9 * 0.5 * (1 + torch.cos(math.pi * i / steps)))
-
-
-def bias_correction(b: float, step: torch.Tensor) -> torch.Tensor:
-    """Adam's 1 − b**step in fp32 from the fp32 ``step``."""
-    return 1 - b ** step
 
 
 @torch.no_grad()

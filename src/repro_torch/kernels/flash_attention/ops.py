@@ -35,6 +35,15 @@ Grid limits: ``simt`` and ``scoring`` launch (⌈S/rows⌉, B·H) blocks and
 The decode kernel's split counters are one zeroed buffer per device, kept
 zero by the kernel: two decode launches on different streams of one device
 must not run at the same time.
+
+Gradients: where an operand requires one, the call goes through
+:class:`FlashAttention`, a :class:`torch.autograd.Function` whose forward
+is the same kernel (the plain version on the CPU) and whose backward
+recomputes the plain version from the saved operands and returns its
+vector-Jacobian product.  The reference's Pallas kernel has no backward,
+and its LM differentiates plain ``jnp`` attention, so no backward kernel
+is ported; one is queued in ROADMAP queue 2.  Calls that need no gradient
+(serving, ``no_grad``) launch the kernel alone, as before.
 """
 from __future__ import annotations
 
@@ -158,6 +167,39 @@ def flash_attention(
         raise ValueError(f"window {window} must be >= 1")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap {softcap} must be > 0")
+    args = (causal, window, softcap, kv_len)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, *args)
+    return _forward(q, k, v, *args)
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the forward is the kernel on
+    CUDA tensors (the plain version on CPU tensors), the backward the plain
+    version's VJP, recomputed from the saved ``q``, ``k``, ``v``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, softcap, kv_len)
+        return _forward(q, k, v, causal, window, softcap, kv_len)
+
+    @staticmethod
+    def backward(ctx, grad):
+        causal, window, softcap, kv_len = ctx.args
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            out = flash_attention_ref(*ins, causal=causal, window=window,
+                                      softcap=softcap, kv_len=kv_len)
+            dq, dk, dv = torch.autograd.grad(out, ins, grad)
+        return dq, dk, dv, None, None, None, None
+
+
+def _forward(q, k, v, causal, window, softcap, kv_len) -> torch.Tensor:
+    """The kernel's launch on CUDA operands, the plain version on CPU ones
+    (operands already validated by :func:`flash_attention`)."""
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
     if build.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, kv_len=kv_len)

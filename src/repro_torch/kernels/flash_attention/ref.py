@@ -1,5 +1,6 @@
 """Plain PyTorch version of the flash-attention kernel
-(``csrc/flash_attention.cu``), in fp32.
+(``csrc/flash_attention.cu``), in fp32 (fp64 operands stay fp64, so that
+``torch.autograd.gradcheck`` can hold the VJP its backward takes).
 
 It computes what ``repro/kernels/flash_attention/kernel.py::
 flash_attention_fwd`` computes, with the same arguments: scores
@@ -32,8 +33,9 @@ def flash_attention_ref(
     b, h, s, d = q.shape
     kv, t = k.shape[1], k.shape[2]
     kv_len = t if kv_len is None else kv_len
-    qg = q.reshape(b, kv, h // kv, s, d).float()
-    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) * (1.0 / d ** 0.5)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, kv, h // kv, s, d).to(acc)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(acc)) * (1.0 / d ** 0.5)
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
     q_pos = torch.arange(s, device=q.device)[:, None]
@@ -48,7 +50,7 @@ def flash_attention_ref(
     p = torch.where(mask, p, 0.0)
     denom = p.sum(dim=-1, keepdim=True)
     denom = torch.where(denom == 0, 1.0, denom)  # fully masked rows → zeros
-    out = torch.einsum("bkgst,bktd->bkgsd", p, v.float()) / denom
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(acc)) / denom
     return out.reshape(b, h, s, d).to(q.dtype)
 
 

@@ -11,6 +11,10 @@ layer's spec: repeat ``r``, pattern slot ``j`` is layer
 list.  The xLSTM mixers, the MoE, MLA, cross-attention, encoders and the
 MTP head raise :class:`NotImplementedError` naming the ROADMAP slice that
 brings them.
+
+Training (``training/train_step.py``) reads the model through
+:func:`train_fwd`: the logits or the final hidden states, and the aux
+term.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
@@ -172,9 +177,15 @@ def embed_scale(cfg: ArchConfig) -> torch.Tensor:
 
 
 def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
-           cache: Optional[dict] = None, cache_pos: Optional[int] = None):
+           cache: Optional[dict] = None, cache_pos: Optional[int] = None,
+           remat: bool = False, return_hidden: bool = False):
     """Full-sequence forward (``cache=None``) or cached decode step.
-    Returns ``(logits over the padded vocabulary, new_cache)``."""
+    Returns ``(logits over the padded vocabulary, new_cache)``; with
+    ``return_hidden``, the final hidden states (after the final norm) in
+    place of the logits, for the chunked loss.  With ``remat`` (full
+    sequence only) each layer's activations are recomputed in the backward
+    pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+    over its super-block), which changes no value."""
     h = model.embed[tokens] * float(embed_scale(cfg))  # exact as a scalar
     b, s = h.shape[:2]
     offset = 0 if cache is None else cache_pos
@@ -182,6 +193,11 @@ def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     new_layers = []
     for i, (p, spec) in enumerate(zip(model.layers, layer_specs(cfg))):
+        if remat and cache is None:
+            h = checkpoint(lambda x, p=p, spec=spec: layer_fwd(
+                p, cfg, spec, x, positions=positions)[0], h,
+                use_reentrant=False)
+            continue
         c_in = cache["layers"][i] if cache is not None else None
         h, c2 = layer_fwd(p, cfg, spec, h, positions=positions, cache=c_in,
                           cache_pos=cache_pos)
@@ -189,6 +205,8 @@ def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
     new_cache = {"layers": new_layers} if cache is not None else None
 
     h = cm.rms_norm(h, model.final_norm, cfg.norm_eps)
+    if return_hidden:
+        return h, new_cache
     head = model.embed.t() if cfg.tie_embeddings else model.lm_head
     logits = h @ head
     if cfg.logit_softcap:
@@ -204,6 +222,18 @@ def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
 def model_fwd(model: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     """Prefill forward of ``batch["tokens"]``: the logits."""
     return lm_fwd(model, cfg, batch["tokens"])[0]
+
+
+def train_fwd(model: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
+              return_hidden: bool = False):
+    """The training forward of ``batch["tokens"]``, as the reference's
+    ``model_fwd``/``lm_fwd`` hand it to the loss: ``(logits, or the final
+    hidden states with return_hidden, aux)``.  ``aux`` is the MoE's
+    balance term, an fp32 zero for every configuration the port runs
+    (:func:`check_supported` refuses the MoE)."""
+    out, _ = lm_fwd(model, cfg, batch["tokens"], remat=remat,
+                    return_hidden=return_hidden)
+    return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
 
 def init_model_cache(cfg: ArchConfig, batch: int, max_len: int, *,

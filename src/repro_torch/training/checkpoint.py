@@ -8,13 +8,21 @@ A checkpoint is msgpack of ``{"meta": {...}, "arrays": {key: {"dtype",
 (the UNet's identity ``skip``) are absent.  The decoder and encoder below
 cover the msgpack types those files use, so the port needs no msgpack
 package; :func:`save` writes the bytes the reference's ``save`` writes.
+
+The LM trainer's checkpoint is the reference's ``(params, opt_state)``
+pair: keys ``0/lm/blocks/0/attn/wq``, ``1/count``, ``1/m/lm/...``, with
+each pattern slot's layers stacked on a leading ``n_repeats`` axis
+(:func:`lm_state_to_jax`, :func:`lm_state_from_jax`), so a file written by
+either package restores in the other.  Writes are atomic; with ``step``
+they are versioned (``step_%08d.ckpt``) under a ``latest`` symlink.
 """
 from __future__ import annotations
 
 import os
 import struct
+import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -149,24 +157,142 @@ def packb(obj) -> bytes:
     return bytes(out)
 
 
-def save(path, flat: Dict[str, np.ndarray], meta: Optional[dict] = None
-         ) -> Path:
-    """Write ``flat`` (``{"large/down/0/conv1": ndarray, ...}`` in the
-    reference's flatten order, as :func:`params_to_jax` gives) as the
-    reference's ``save`` does: the same payload, written to a ``.tmp``
-    file and moved over ``path``."""
+def _pack_array(a) -> dict:
+    """A numpy array or tensor as the format's ``{"dtype", "shape",
+    "data"}``; bf16 under the name numpy's ``bfloat16`` extension type
+    (the reference's) gives it."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().to("cpu").contiguous()
+        if a.dtype == torch.bfloat16:
+            return {"dtype": "bfloat16", "shape": list(a.shape),
+                    "data": a.view(torch.int16).numpy().tobytes()}
+        a = a.numpy()
+    return {"dtype": str(a.dtype), "shape": list(a.shape),
+            "data": np.ascontiguousarray(a).tobytes()}
+
+
+def _unpack_tensor(d: dict) -> torch.Tensor:
+    if d["dtype"] == "bfloat16":
+        t = torch.frombuffer(bytearray(d["data"]), dtype=torch.bfloat16)
+        return t.reshape(d["shape"])
+    a = np.frombuffer(d["data"], dtype=d["dtype"]).reshape(d["shape"])
+    return torch.from_numpy(a.copy())
+
+
+def save(path, flat: Mapping[str, object], meta: Optional[dict] = None, *,
+         step: Optional[int] = None) -> Path:
+    """Write ``flat`` (``{"large/down/0/conv1": array, ...}``, numpy arrays
+    or tensors, in the reference's flatten order, as :func:`params_to_jax`
+    or :func:`flatten` gives it) as the reference's ``save`` does: the same
+    payload, written to a ``.tmp`` file and moved over ``path``.  With
+    ``step``, ``path`` is a directory: the file is ``step_%08d.ckpt``
+    there, and the ``latest`` symlink moves to it (also atomically)."""
     path = Path(path)
+    if step is not None:
+        path = path / f"step_{step:08d}.ckpt"
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = {
         "meta": meta or {},
-        "arrays": {k: {"dtype": str(a.dtype), "shape": list(a.shape),
-                       "data": np.ascontiguousarray(a).tobytes()}
-                   for k, a in flat.items()},
+        "arrays": {k: _pack_array(a) for k, a in flat.items()},
     }
     tmp = path.with_suffix(".tmp")
     tmp.write_bytes(packb(payload))
     os.replace(tmp, path)
+    if step is not None:
+        latest = path.parent / "latest"
+        tmp_l = path.parent / ".latest.tmp"
+        if tmp_l.exists() or tmp_l.is_symlink():
+            tmp_l.unlink()
+        tmp_l.symlink_to(path.name)
+        os.replace(tmp_l, latest)
     return path
+
+
+def save_async(path, flat: Mapping[str, object], meta: Optional[dict] = None,
+               *, step: Optional[int] = None) -> threading.Thread:
+    """Copy ``flat`` to host memory now, write it (:func:`save`) in a
+    background thread; join the returned thread before the next save."""
+    host = {k: (v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor)
+                else np.array(v, copy=True)) for k, v in flat.items()}
+    t = threading.Thread(target=save, args=(path, host, meta),
+                         kwargs={"step": step}, daemon=True)
+    t.start()
+    return t
+
+
+def restore(path, like: Mapping[str, torch.Tensor]):
+    """``({key: tensor}, meta)`` for every key of ``like`` (``{key:
+    tensor}`` giving each array's shape and dtype), read from ``path`` (a
+    directory means its ``latest``), each cast to ``like``'s dtype, on the
+    CPU.  Raises :class:`KeyError` for a missing key and
+    :class:`ValueError` for a shape that differs, as the reference's
+    ``restore``."""
+    path = Path(path)
+    if path.is_dir():
+        path = path / "latest"
+    payload = unpackb(path.read_bytes())
+    arrays = payload["arrays"]
+    out = {}
+    for key, ref in like.items():
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing {key}")
+        t = _unpack_tensor(arrays[key]).to(ref.dtype)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: ckpt {tuple(t.shape)} vs expected "
+                             f"{tuple(ref.shape)}")
+        out[key] = t
+    return out, payload["meta"]
+
+
+def latest_step(ckpt_dir) -> Optional[int]:
+    """The largest ``step`` of the ``step_%08d.ckpt`` files in
+    ``ckpt_dir``, or None."""
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    steps = sorted(int(p.stem.split("_")[1])
+                   for p in ckpt_dir.glob("step_*.ckpt"))
+    return steps[-1] if steps else None
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """The leaves of a nested tree of dicts, lists and tuples under their
+    ``/``-joined paths, in ``jax.tree_util``'s flatten order: a dict's keys
+    sorted, a sequence's items by index; ``None`` is an empty subtree."""
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, val in items:
+        out.update(flatten(val, f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
+def unflatten(flat: Mapping[str, object]):
+    """The inverse of :func:`flatten`: nested dicts, a dict whose keys are
+    ``"0"`` … ``"n-1"`` becoming a list."""
+    tree: dict = {}
+    for key, val in flat.items():
+        node = tree
+        *heads, last = key.split("/")
+        for part in heads:
+            node = node.setdefault(part, {})
+        node[last] = val
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
 
 
 def load_flat(path) -> Dict[str, np.ndarray]:
@@ -217,38 +343,146 @@ def params_to_jax(state_dict, cfg) -> Dict[str, np.ndarray]:
     return out
 
 
-def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
-    """State dict of the port's LM (``models/transformer.py::LM``) for the
-    reference's parameter tree ``params_np`` (numpy leaves, as
-    ``jax.tree.map(np.asarray, params)`` gives).  The super-block stacks
-    are unstacked: leaf ``params["lm"]["blocks"][j][...][r]`` becomes layer
-    ``r * len(pattern) + j``, the remainder follows.  Weights keep the
-    einsum layouts (``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo``
-    (H, hd, d), ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d); an RG-LRU
-    block's ``rglru`` leaves ``w_x``, ``w_g``, ``w_a``, ``w_i``, ``w_out``,
-    ``conv_w``, ``conv_b``, ``b_a``, ``b_i``, ``lam`` by name), in fp32;
-    ``load_state_dict`` casts them to each parameter's dtype, so ``lam``
-    stays fp32 in a bf16 model."""
-    lm = params_np["lm"]
+def _is_leaf(val) -> bool:
+    """A leaf of an LM tree: an array, or an int8 moment ``{"q", "s"}``."""
+    return not isinstance(val, dict) or set(val) == {"q", "s"}
+
+
+def lm_tree_from_jax(lm: dict, cfg, *, unstack: bool = True
+                     ) -> Dict[str, object]:
+    """``{port parameter name: leaf}`` for the reference's ``params["lm"]``
+    tree ``lm`` (or a moment tree of the same shape; leaves numpy arrays,
+    tensors or ``{"q", "s"}`` pairs of them).  The super-block stacks are
+    unstacked: leaf ``lm["blocks"][j][...][r]`` becomes layer ``r *
+    len(pattern) + j``, the remainder follows.  With ``unstack=False``
+    each of those layers names the whole stacked leaf."""
     n_pat = len(cfg.pattern)
-    out = {"embed": lm["embed"], "final_norm": lm["final_norm"]}
-    if "lm_head" in lm:
-        out["lm_head"] = lm["lm_head"]
+    out = {k: lm[k] for k in ("embed", "final_norm", "lm_head") if k in lm}
+
+    def pick(val, index):
+        if index is None:
+            return val
+        if isinstance(val, dict):
+            return {k: v[index] for k, v in val.items()}
+        return val[index]
 
     def put(prefix: str, tree, index=None) -> None:
         for key, val in tree.items():
-            if isinstance(val, dict):
-                put(f"{prefix}.{key}", val, index)
+            if _is_leaf(val):
+                out[f"{prefix}.{key}"] = pick(val, index)
             else:
-                out[f"{prefix}.{key}"] = val if index is None else val[index]
+                put(f"{prefix}.{key}", val, index)
 
     for j, block in enumerate(lm["blocks"]):
         for r in range(cfg.n_repeats):
-            put(f"layers.{r * n_pat + j}", block, r)
+            put(f"layers.{r * n_pat + j}", block, r if unstack else None)
     for i, layer in enumerate(lm.get("rem", ())):
         put(f"layers.{cfg.n_repeats * n_pat + i}", layer)
+    return out
+
+
+def lm_tree_to_jax(named: Mapping[str, object], cfg) -> dict:
+    """The inverse of :func:`lm_tree_from_jax`: the reference's
+    ``params["lm"]`` tree (``embed``, ``blocks`` — one dict per pattern
+    slot, each leaf the slot's layers stacked on a leading ``n_repeats``
+    axis — ``final_norm``, ``lm_head`` when untied, ``rem`` when the config
+    has a remainder) of ``named`` (port parameter name → tensor or ``{"q",
+    "s"}`` pair)."""
+    n_pat = len(cfg.pattern)
+    n_body = cfg.n_repeats * n_pat
+    lm: dict = {k: named[k] for k in ("embed", "final_norm", "lm_head")
+                if k in named}
+    slots = [dict() for _ in range(n_pat)]
+    rem = [dict() for _ in range(len(cfg.remainder))]
+    for name, val in named.items():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            continue
+        i = int(parts[1])
+        if i < n_body:
+            node = slots[i % n_pat]
+            for part in parts[2:-1]:
+                node = node.setdefault(part, {})
+            node.setdefault(parts[-1], []).append(val)  # in repeat order
+        else:
+            node = rem[i - n_body]
+            for part in parts[2:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = val
+
+    def stack(node):
+        if isinstance(node, list):
+            if isinstance(node[0], dict):
+                return {k: torch.stack([v[k] for v in node]) for k in node[0]}
+            return torch.stack(node)
+        return {k: stack(v) for k, v in node.items()}
+
+    lm["blocks"] = tuple(stack(slot) for slot in slots)
+    if rem:
+        lm["rem"] = tuple(rem)
+    return lm
+
+
+def lm_leaf_ranks(named: Mapping[str, torch.Tensor], cfg) -> Dict[str, int]:
+    """Each port parameter's name and the rank of its leaf in the
+    reference's tree as :func:`lm_tree_to_jax` stacks it: a pattern
+    layer's leaf carries the leading ``n_repeats`` axis, a remainder
+    layer's and the top-level ones do not.  AdamW decays a leaf of rank 2
+    or more (``training/optimizer.py``)."""
+    meta = {n: torch.empty(p.shape, device="meta") for n, p in named.items()}
+    leaves = lm_tree_from_jax(lm_tree_to_jax(meta, cfg), cfg, unstack=False)
+    return {n: leaves[n].dim() for n in named}
+
+
+def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
+    """State dict of the port's LM (``models/transformer.py::LM``) for the
+    reference's parameter tree ``params_np`` (numpy leaves, as
+    ``jax.tree.map(np.asarray, params)`` gives), unstacked by
+    :func:`lm_tree_from_jax`.  Weights keep the einsum layouts (``wq`` (d,
+    H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d),
+    ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d); an RG-LRU block's
+    ``rglru`` leaves ``w_x``, ``w_g``, ``w_a``, ``w_i``, ``w_out``,
+    ``conv_w``, ``conv_b``, ``b_a``, ``b_i``, ``lam`` by name), in fp32;
+    ``load_state_dict`` casts them to each parameter's dtype, so ``lam``
+    stays fp32 in a bf16 model."""
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
-            for k, v in out.items()}
+            for k, v in lm_tree_from_jax(params_np["lm"], cfg).items()}
+
+
+def lm_state_to_jax(model, opt_state: dict, cfg) -> Dict[str, torch.Tensor]:
+    """The flat checkpoint of the LM trainer's ``(params, opt_state)``
+    pair as the reference's ``launch/train.py`` saves it: ``0/lm/...``
+    the parameters, ``1/count``, ``1/m/lm/...`` and ``1/v/lm/...`` the
+    AdamW state (``.../q`` and ``.../s`` for int8 moments), blocks
+    stacked, in the reference's flatten order; tensors detached, on their
+    devices."""
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    return flatten((
+        {"lm": lm_tree_to_jax(params, cfg)},
+        {"count": opt_state["count"],
+         "m": {"lm": lm_tree_to_jax(opt_state["m"], cfg)},
+         "v": {"lm": lm_tree_to_jax(opt_state["v"], cfg)}}))
+
+
+def lm_state_from_jax(flat: Mapping[str, torch.Tensor], model, cfg) -> dict:
+    """Load the flat ``(params, opt_state)`` checkpoint ``flat`` (as
+    :func:`restore` reads it against :func:`lm_state_to_jax`'s keys) into
+    ``model``'s parameters in place; returns the optimizer state, on the
+    model's device."""
+    params, opt = unflatten(flat)
+    dev = model.device
+    named = lm_tree_from_jax(params["lm"], cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(named[name])
+
+    def moments(tree):
+        return {n: ({k: t.to(dev) for k, t in v.items()}
+                    if isinstance(v, dict) else v.to(dev))
+                for n, v in lm_tree_from_jax(tree["lm"], cfg).items()}
+
+    return {"m": moments(opt["m"]), "v": moments(opt["v"]),
+            "count": opt["count"].to(dev)}
 
 
 def linucb_state_from_jax(A, b, counts, device):

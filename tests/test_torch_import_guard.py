@@ -8,8 +8,10 @@ federated gossip, the LinUCB snapshot), the parts the engines stand on
 synthetic workload), both serving engines (8 requests, raw and
 compressed), a two-cluster fleet (locality routing, autoscaled,
 federated RISE gossiping), one training step of a narrow denoiser with
-its checkpoint written and read back, and the four Table III baselines on
-toy nets run on the CPU, in a process where ``jax`` and
+its checkpoint written and read back, the four Table III baselines on
+toy nets, and one step of the LM training driver on a reduced
+configuration with its checkpoint written and read back, run on the CPU,
+in a process where ``jax`` and
 the reference package ``repro`` cannot be imported; no port source
 imports either."""
 from __future__ import annotations
@@ -278,6 +280,28 @@ for fam in ("XL", "F3"):
                             torch.zeros(2, 16))
         assert out.shape == x.shape and torch.isfinite(out).all()
         assert 0 < evals <= len(spec.sigmas_edge) - 1
+
+# the LM training driver: one reduced step on the CPU, its checkpoint
+# written and read back into a fresh model
+import contextlib, io
+from repro_torch.launch import train as launch_train
+from repro_torch.training.optimizer import OptConfig, adamw_init
+
+with tempfile.TemporaryDirectory() as tmp, \
+        contextlib.redirect_stdout(io.StringIO()) as log:
+    losses = launch_train.main(["--arch", "granite-8b", "--steps", "1",
+                                "--batch", "2", "--seq", "8", "--device",
+                                "cpu", "--ckpt-dir", tmp])
+    assert log.getvalue().startswith("done: loss")
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    lm_cfg = configs.make_reduced(configs.get_config("granite-8b"))
+    lm = tr.init_model(lm_cfg, torch.Generator().manual_seed(5), "cpu")
+    state = adamw_init(dict(lm.named_parameters()), OptConfig())
+    flat, meta = ck.restore(f"{tmp}/granite-8b",
+                            ck.lm_state_to_jax(lm, state, lm_cfg))
+    state = ck.lm_state_from_jax(flat, lm, lm_cfg)
+    assert meta == {"step": 1, "arch": "granite-8b"}
+    assert int(state["count"]) == 1
 print("ok", len(names))
 """
 
