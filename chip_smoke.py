@@ -9,8 +9,10 @@ and DAG arms, the scheduler's decision loop over the executor's quality
 table, the sequential serving engine, the continuous-batching runtime
 and a fleet of three clusters over that table, the serving driver end to
 end, diffusion training and the Table III baselines, LM training on
-five configurations, the LM prefix relay at ``qwen3-4b`` width and the
-same relay at ``recurrentgemma-9b`` width —
+seven configurations, the MoE and MLA models (``deepseek-v3-671b``,
+``llama4-maverick-400b-a17b``) at full width cut in depth, the LM prefix
+relay at ``qwen3-4b`` width and the same relay at ``recurrentgemma-9b``
+width —
 and holds every CUDA kernel against its plain PyTorch version.  Phases,
 each failing the run (non-zero exit, no result line) on any mismatch:
 
@@ -73,7 +75,9 @@ each failing the run (non-zero exit, no result line) on any mismatch:
    window 2048), and fp32 cases at head dim 256; scoring at S = 70
    (ragged tiles) at head dims 128 and 256, plain and with a window of 24;
    ``gemma2-27b``'s training shape (q (2, 32, 64, 128) over 16 KV heads,
-   softcap 50, causal, window 16 and global);
+   softcap 50, causal, window 16 and global); ``llama4-maverick-400b-a17b``'s
+   group of 5 (q (8, 40, 1, 128) over 8 KV heads and a cache of 32, kv_len
+   1, 17, 32, and scoring at S = T = 32);
 7. flash attention's times per shape (both models' decode and scoring,
    4096, the two long-cache decodes, in the model's layout): the
    kernel's, the plain version's and SDPA's beside the bound;
@@ -259,8 +263,9 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     training step of each net on each device; nothing under ``results/``
     changes;
 21. LM training (``training/{optimizer,train_step}.py``,
-    ``launch/train.py``): (a) one step of each of the five
-    configurations' ``make_reduced`` and of ``granite-8b`` at full width
+    ``launch/train.py``): (a) one step of each of the seven
+    configurations' ``make_reduced`` (the MoE models' aux term and
+    deepseek's MTP head in the loss) and of ``granite-8b`` at full width
     (2 layers, 2 x 64 tokens), fp32, from the same weights and batch, card
     against ``device="cpu"``: the loss, every parameter's gradient (none
     ``None``; each within ``TRAIN_GRAD_RTOL``), the step's loss,
@@ -277,16 +282,42 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     the card, 8 steps, and 4 steps resumed to 8: the losses within 1e-5
     (bits equal or not, printed); flash attention and the scan launch
     exactly once per attention or RG-LRU layer per forward throughout (a
-    backward is the plain versions' VJP and launches neither).
+    backward is the plain versions' VJP and launches neither);
+22. the MoE and MLA models (``models/mlp.py``'s sort-based MoE,
+    ``models/attention.py``'s MLA, the MTP head): (a) ``make_reduced`` of
+    ``deepseek-v3-671b`` and ``llama4-maverick-400b-a17b`` in fp32, the
+    same weights on the card and the CPU: every MoE call's experts equal
+    (a flip fails), the forward logits, each decode step (MLA expanded and
+    absorbed; llama4 at top-1 and at top-2, the latter also against the
+    forward), the MTP logits and the aux term within ``LM_RTOL``; (b)
+    ``deepseek-v3-671b`` at full width in bf16, the large model one
+    MLA+MoE layer (256 experts, top-8, one shared) and one MLA+dense
+    layer (13.94 B), the small one the MLA+MoE layer (13.36 B):
+    ``relay_decode`` of 8 prompts of 16 tokens at s = 8 of 16 new ones and
+    ``sequence_logprob``, MLA expanded and absorbed on the same weights
+    (tokens equal up to a tie; scoring logits, and each step of the decode
+    over the latent cache teacher-forced on one run's tokens, within
+    ``MLA_MODES_RTOL``, with each clear new token equal), each MoE call within ``MOE_ORACLE_RTOL`` of an fp32 oracle computed on
+    the card from its routing, the relay again bit for bit, no kernel
+    launched (MLA's attention is plain torch); (c)
+    ``llama4-maverick-400b-a17b`` at full width in bf16, 2 layers (dense,
+    MoE of 128 experts top-1; 18.56 B): ``greedy_decode`` of the same
+    shape and ``sequence_logprob``, flash attention exactly once per
+    layer per decode step (decode kernel, a group of 5) and per scoring
+    forward (scoring kernel), the MoE oracle, the decode again bit for
+    bit, every flash call replayed within ``FLASH_TOL`` of the plain
+    version; for (b) and (c) the peak memory, ms per decode step, the
+    busy share and the step's byte bounds (every expert read, as the
+    reference's dispatch reads them; only the routed ones).
 
-The phases run in the order 1-7, 11, 15-21, 8-10, 12-14.  Every
+The phases run in the order 1-7, 11, 15-22, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
 over phases 3 and 15-20; flash attention's over phases 8, the traced
-relay included, 12 and 21; the scan's over 12 and 21), the card's line,
+relay included, 12, 21 and 22; the scan's over 12 and 21), the card's line,
 and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -474,7 +505,8 @@ SADA_THRESHOLD, SADA_TIE = 0.12, 1e-4
 # batch of 2 x 64 tokens (the loss must fall); (c) launch/train.py's
 # resume case (the reference's tests/test_training.py) on the card
 LM_TRAIN_NAMES = ("gemma2-27b", "granite-8b", "qwen3-4b", RG_NAME,
-                  "stablelm-1.6b")
+                  "stablelm-1.6b", "deepseek-v3-671b",
+                  "llama4-maverick-400b-a17b")
 LM_TRAIN_ROWS, LM_TRAIN_SEQ = 4, 16
 LM_FULL_NAME, LM_FULL_LAYERS, LM_FULL_ROWS, LM_FULL_SEQ = (
     "granite-8b", 2, 2, 64)
@@ -484,6 +516,32 @@ LM_BF16_NAME, LM_BF16_WINDOW, LM_BF16_CHUNK, LM_BF16_STEPS = (
     "gemma2-27b", 16, 16, 10)
 LAUNCH_ARGS = ["--arch", "stablelm-1.6b", "--batch", "2", "--seq", "16",
                "--ckpt-every", "4"]
+# phase 22, MoE and MLA: (a) card against CPU in fp32 on make_reduced of
+# both MoE models, MOE_CHECK_ROWS sequences of MOE_CHECK_SEQ tokens (their
+# training step is phase 21 (a)'s, LM_TRAIN_NAMES); (b) deepseek-v3-671b
+# and (c) llama4-maverick-400b-a17b at full width in bf16, cut in depth,
+# MOE_ROWS prompts of MOE_PROMPT tokens and MOE_NEW new ones, deepseek's
+# relay at s = MOE_SPLIT
+MOE_DS, MOE_L4 = "deepseek-v3-671b", "llama4-maverick-400b-a17b"
+MOE_CHECK_ROWS, MOE_CHECK_SEQ = 2, 12
+MOE_ROWS, MOE_PROMPT, MOE_NEW, MOE_SPLIT = 8, 16, 16, 8
+# each bf16 MoE call against an fp32 oracle computed on the card from the
+# same bf16 input, weights and routing (norm-wise over the call's tokens):
+# the port rounds the three expert products, the weighting and each add of
+# the combine to bf16, about 2^-8 each; the LM_BF16_RTOL of phase 9, 4.2x
+# the largest reading (4.7e-3 over deepseek's 114 calls, 4.4e-3 over
+# llama4's 33; H100 80GB HBM3, 700 W)
+MOE_ORACLE_RTOL = 2e-2
+# deepseek bf16, MLA expand against absorb: the scoring logits of the two
+# modes on the same tokens, norm-wise; 3.1x the reading (6.4e-3; H100
+# 80GB HBM3, 700 W): the modes round different bf16 intermediates (the
+# expanded keys and values, or the absorbed query and latent output).
+# The same bound holds each teacher-forced decode step over the latent
+# cache: 1.24x the largest step (1.61e-2, the small model's second step;
+# most steps read 3.3e-3-8.3e-3, seven 9.4e-3-1.4e-2; H100 80GB HBM3,
+# 700 W), whose readings repeat bit for bit, their weights and tokens
+# drawn from fixed seeds
+MLA_MODES_RTOL = 2e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -785,6 +843,14 @@ def check_flash(gen, dev) -> float:
     cases += [(LM_FULL_ROWS, 32, 16, LM_FULL_SEQ, LM_FULL_SEQ, 128, True, w,
                50.0, None, torch.bfloat16, True)
               for w in (LM_BF16_WINDOW, None)]
+    # llama4-maverick-400b-a17b (phase 22 (c)): 40 query heads over 8 KV
+    # heads of 128, a group of 5 (5 of the decode tile's 16 rows live);
+    # decode over its cache of MOE_PROMPT + MOE_NEW, and its scoring
+    steps = MOE_PROMPT + MOE_NEW
+    cases += [(MOE_ROWS, 40, 8, 1, steps, 128, False, None, None, kl,
+               torch.bfloat16, True) for kl in (1, 17, steps)]
+    cases.append((MOE_ROWS, 40, 8, steps, steps, 128, True, None, None, None,
+                  torch.bfloat16, True))
     worst, used = 0.0, {}
     for (b, h, kv, s, t, d, causal, window, cap, kv_len, dtype,
          layout) in cases:
@@ -2930,11 +2996,17 @@ def lm_train_batch(cfg, rows: int, seq: int, step: int, where) -> dict:
             "labels": torch.from_numpy(labels).to(where)}
 
 
+def flash_layers(cfg) -> int:
+    """The layers of ``cfg`` whose attention is the flash kernel's: its
+    GQA layers (MLA's attention is plain torch, as in the reference)."""
+    return 0 if cfg.mla is not None else mixer_layers(cfg, "attn")
+
+
 def lm_launches(cfg, forwards: int) -> dict:
     """The kernel launches of ``forwards`` training forwards of ``cfg``:
-    flash attention once per attention layer, the scan once per RG-LRU
-    layer (a backward launches neither: it is the plain versions' VJP)."""
-    return {"flash_attention": mixer_layers(cfg, "attn") * forwards,
+    flash attention once per GQA layer, the scan once per RG-LRU layer (a
+    backward launches neither: it is the plain versions' VJP)."""
+    return {"flash_attention": flash_layers(cfg) * forwards,
             "rglru_scan": mixer_layers(cfg, "rglru") * forwards}
 
 
@@ -3230,6 +3302,559 @@ def lm_train_phase(dev) -> dict:
     lm_bf16_training(dev, total)
     lm_launch_resume(dev, total)
     print(f"LM training phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+    return total
+
+
+# ---- 22. MoE and MLA -----------------------------------------------------
+
+
+class MoECalls:
+    """Records every MoE call while active: ``_route``'s experts and
+    probabilities and, with ``inputs``, the layer, its input and its
+    output (copies; the recorded tensors stay on their device).  It
+    patches ``models/mlp.py``'s ``_route`` and ``moe_fwd``, which the
+    layer looks up at each call."""
+
+    def __init__(self, inputs: bool = False):
+        self.inputs, self.calls = inputs, []
+
+    def __enter__(self):
+        from repro_torch.models import mlp as mlp_mod
+
+        self.route, self.fwd = mlp_mod._route, mlp_mod.moe_fwd
+
+        def route(router, xf, m):
+            top_p, top_idx, aux = self.route(router, xf, m)
+            self.calls.append({"top_idx": top_idx.clone(),
+                               "top_p": top_p.detach().clone(),
+                               "aux": aux.detach().clone()})
+            return top_p, top_idx, aux
+
+        def fwd(p, cfg, x, **kw):
+            out, aux = self.fwd(p, cfg, x, **kw)
+            if self.inputs:
+                self.calls[-1].update(p=p, x=x.detach().clone(),
+                                      out=out.detach().clone())
+            return out, aux
+
+        mlp_mod._route, mlp_mod.moe_fwd = route, fwd
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mlp as mlp_mod
+
+        mlp_mod._route, mlp_mod.moe_fwd = self.route, self.fwd
+        return False
+
+
+def routing_flips(card: list, cpu: list) -> int:
+    """The experts chosen differently by the two devices' MoE calls (the
+    calls pair in order; a missing call fails)."""
+    check(len(card) == len(cpu) and len(card) > 0,
+          f"MoE calls: card {len(card)}, CPU {len(cpu)}")
+    return sum(int((a["top_idx"].cpu() != b["top_idx"]).sum())
+               for a, b in zip(card, cpu))
+
+
+def moe_oracle(p, cfg, x, top_idx, top_p) -> torch.Tensor:
+    """One MoE call in fp32 on the card, token by token from the same
+    routing: each token's kept experts (an assignment is kept while fewer
+    than ``capacity`` earlier assignments, in flat token-major order, went
+    to its expert), ``w · expert(x)`` summed, plus the shared expert."""
+    m = cfg.moe
+    act = F.silu if cfg.act == "silu" else None
+    check(act is not None, f"oracle: activation {cfg.act}")
+    xf = x.reshape(-1, x.shape[-1]).float()
+    t, k = top_idx.shape
+    cap = max(8, min(int(t * k * m.capacity_factor / m.n_experts) + 1, t))
+    flat = F.one_hot(top_idx.reshape(-1), m.n_experts)
+    earlier = (flat.cumsum(0) - flat) * flat
+    keep = (earlier.sum(1) < cap).view(t, k)
+    out = torch.zeros_like(xf)
+    for e in torch.unique(top_idx[keep]).tolist():
+        sel = (top_idx == e) & keep
+        rows = sel.any(1).nonzero()[:, 0]
+        w = (top_p * sel).sum(1)[rows, None]
+        xe = xf[rows]
+        y = (act(xe @ p.we_gate[e].float()) * (xe @ p.we_up[e].float())
+             ) @ p.we_down[e].float()
+        out[rows] += w * y
+    if m.n_shared:
+        s = p.shared
+        out += (act(xf @ s.w_gate.float()) * (xf @ s.w_up.float())
+                ) @ s.w_down.float()
+    return out
+
+
+def moe_oracle_checks(what: str, calls: list, cfg) -> dict:
+    """Every recorded bf16 MoE call against :func:`moe_oracle` within
+    ``MOE_ORACLE_RTOL``; the largest error, the calls and their tokens,
+    and the distinct experts a one-row-per-prompt (decode) call read."""
+    worst, tokens, distinct = 0.0, 0, []
+    for c in calls:
+        ref = moe_oracle(c["p"], cfg, c["x"], c["top_idx"], c["top_p"])
+        got = c["out"].reshape(ref.shape)
+        check(torch.isfinite(got).all(), f"{what}: a MoE output not finite")
+        worst = max(worst, norm_rel(got, ref))
+        tokens += ref.shape[0]
+        if c["x"].shape[1] == 1:
+            distinct.append(int(torch.unique(c["top_idx"]).numel()))
+    check(worst <= MOE_ORACLE_RTOL, f"{what}: a MoE call {worst} off its "
+          f"fp32 oracle (MOE_ORACLE_RTOL {MOE_ORACLE_RTOL})")
+    return {"calls": len(calls), "tokens": tokens, "oracle_rel": worst,
+            "distinct_experts_per_decode_call": (
+                float(np.mean(distinct)) if distinct else None)}
+
+
+def moe_card_vs_cpu(dev) -> dict:
+    """Phase 22 (a): ``make_reduced`` of both MoE models in fp32, the same
+    weights (drawn on the card, copied) on the card and the CPU: every MoE
+    call's experts equal (no flip), the forward logits, each decode step's
+    logits (deepseek's MLA expanded and absorbed; llama4 at its top-1 and
+    at top-2, where each step is also held to the forward, as the
+    reference's ``test_decode_matches_forward`` holds top-1 MoE at k = 2),
+    the MTP logits and the aux term, within ``LM_RTOL``."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+
+    cpu = torch.device("cpu")
+    out = {}
+    for i, name in enumerate((MOE_DS, MOE_L4)):
+        base = configs.make_reduced(configs.get_config(name))
+        card = tr.init_model(base, torch.Generator(device=dev)
+                             .manual_seed(70 + i), dev)
+        models = {"card": card, "cpu": copy.deepcopy(card).to(cpu)}
+        variants = {"base": base}
+        if base.mla is not None:
+            variants["absorb"] = base.replace(mla=dataclasses.replace(
+                base.mla, absorb=True))
+        if base.moe.top_k == 1:
+            variants["top2"] = base.replace(moe=dataclasses.replace(
+                base.moe, top_k=2))
+        for variant, cfg in variants.items():
+            toks = lm_train_batch(cfg, MOE_CHECK_ROWS, MOE_CHECK_SEQ, i,
+                                  cpu)["tokens"].long()
+            read = {}
+            for key, where in (("card", dev), ("cpu", cpu)):
+                model, x = models[key], toks.to(where)
+                with torch.no_grad(), MoECalls() as calls:
+                    full = tr.model_fwd(model, cfg, {"tokens": x})
+                    cache = tr.init_model_cache(cfg, MOE_CHECK_ROWS,
+                                                MOE_CHECK_SEQ, device=where)
+                    steps = []
+                    for j in range(MOE_CHECK_SEQ):
+                        lg, cache = tr.decode_step(model, cfg, cache,
+                                                   x[:, j:j + 1], j)
+                        steps.append(lg[:, 0])
+                    _, aux, extras = tr.train_fwd(model, cfg, {"tokens": x})
+                read[key] = {"full": full.cpu(),
+                             "steps": torch.stack(steps, 1).cpu(),
+                             "aux": float(aux), "calls": calls,
+                             "mtp": (extras["mtp_logits"].cpu()
+                                     if "mtp_logits" in extras else None)}
+            a, b = read["card"], read["cpu"]
+            flips = routing_flips(a["calls"], b["calls"])
+            res = {"moe_calls": len(a["calls"]), "routing_flips": flips,
+                   "logits_rel": norm_rel(a["full"], b["full"]),
+                   "decode_rel": norm_rel(a["steps"], b["steps"]),
+                   "aux_rel": abs(a["aux"] - b["aux"]) / abs(b["aux"])}
+            if cfg.moe.top_k > 1:
+                res["decode_vs_forward_rel"] = max(
+                    norm_rel(r["steps"], r["full"]) for r in (a, b))
+            if a["mtp"] is not None:
+                res["mtp_rel"] = norm_rel(a["mtp"], b["mtp"])
+            out[f"{name}/{variant}"] = res
+            check(flips == 0, f"{name}/{variant}: {flips} experts chosen "
+                  f"differently on the card and the CPU")
+            worst = max(v for k, v in res.items() if k.endswith("_rel"))
+            check(worst <= LM_RTOL and a["aux"] > 0,
+                  f"{name}/{variant} card vs CPU: {res}")
+        del models, card
+    print(f"MoE/MLA card vs CPU (make_reduced, fp32, {MOE_CHECK_ROWS} x "
+          f"{MOE_CHECK_SEQ} tokens): {json.dumps(out)}")
+    return out
+
+
+def weight_bytes(model, rows: int) -> int:
+    """Bytes a decode step of ``rows`` tokens reads of the weights: every
+    parameter once but the embedding, of which ``rows`` rows, and the MTP
+    head, which decode does not run (the reference's dispatch reads every
+    expert at every step)."""
+    total = 0
+    for name, p in model.named_parameters():
+        if name.startswith("mtp_"):
+            continue
+        n = rows * p.shape[1] if name == "embed" else p.numel()
+        total += n * p.element_size()
+    return total
+
+
+def expert_bytes(model) -> int:
+    """Bytes of one expert's three matrices in the model's MoE layers."""
+    moe = next(m for m in model.modules() if hasattr(m, "we_gate"))
+    return sum(w[0].numel() * w.element_size()
+               for w in (moe.we_gate, moe.we_up, moe.we_down))
+
+
+def decode_times(what, model, cfg, prompt, moe_stats) -> dict:
+    """ms per decode step of ``model`` (``greedy_decode`` of MOE_NEW
+    tokens after the prompt, host clock over a synchronized run, every
+    step counted), the busy share of one such run, and the step's byte
+    bounds: every weight read (the reference's dispatch) and only the
+    experts a step routes to (its MoE calls' mean distinct experts)."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.lm_relay import greedy_decode
+
+    steps = prompt.shape[1] + MOE_NEW
+    greedy_decode(model, cfg, prompt, 2)  # warm
+    _, wall = host_timed(lambda: greedy_decode(model, cfg, prompt, MOE_NEW))
+    share = busy(lambda: greedy_decode(model, cfg, prompt, MOE_NEW), wall)
+    n_moe = sum(s.mlp == "moe" for s in tr.layer_specs(cfg))
+    every = weight_bytes(model, prompt.shape[0])
+    e_bytes = expert_bytes(model) * n_moe
+    active = (every - cfg.moe.n_experts * e_bytes
+              + moe_stats["distinct_experts_per_decode_call"] * e_bytes)
+    out = {"ms_per_step": wall / steps,
+           "bound_ms_every_expert": every / HBM_BYTES_PER_S * 1e3,
+           "bound_ms_active_experts": active / HBM_BYTES_PER_S * 1e3,
+           "weight_gb": every / 1e9, "busy": share}
+    out["share_of_bound"] = out["bound_ms_every_expert"] / out["ms_per_step"]
+    print(f"{what} decode: {json.dumps(out)}; card: {card_line()}")
+    return out
+
+
+def tokens_upto_tie(seqs: dict, logits: dict, p: int, n: int) -> tuple:
+    """Two runs' tokens (``seqs``, 2 of them) equal up to the first
+    position whose top-2 margin in the first run's logits is within
+    ``MARGIN_FACTOR`` times the largest difference of the two runs'
+    logits there (a tie, reported); ``logits[k][j - 1]`` chose token j.
+    Returns ``(position checked up to, tie position or None)``."""
+    (ka, a), (kb, b) = seqs.items()
+    tie = None
+    for j in range(p, p + n):
+        la, lb = logits[ka][:, j - 1], logits[kb][:, j - 1]
+        top2 = torch.topk(la, 2).values
+        if bool((top2[:, 0] - top2[:, 1] <= MARGIN_FACTOR
+                 * (la - lb).abs().amax(-1)).any()):
+            tie = j
+            break
+    upto = p + n if tie is None else tie
+    check(torch.equal(a[:, :upto], b[:, :upto]),
+          f"{ka} and {kb} tokens differ before position {upto}")
+    return upto, tie
+
+
+def teacher_forced(model, cfg, x) -> torch.Tensor:
+    """Each ``decode_step``'s logits over ``x``'s tokens, fed one at a time
+    on a fresh cache of ``x``'s length, as ``greedy_decode`` feeds them:
+    step j reads token j and its logits choose token j + 1; (B, L, V) in
+    the model's dtype."""
+    from repro_torch.models import transformer as tr
+
+    b, n = x.shape
+    cache = tr.init_model_cache(cfg, b, n, device=x.device)
+    steps = []
+    with torch.no_grad():
+        for j in range(n):
+            lg, cache = tr.decode_step(model, cfg, cache, x[:, j:j + 1], j)
+            steps.append(lg[:, 0, :cfg.vocab_size])
+    return torch.stack(steps, 1)
+
+
+def mla_modes_decode(large, small, modes, seq, p) -> dict:
+    """Phase 22 (b)'s decode over the written latent cache, MLA expanded
+    and absorbed, teacher-forced on the expanded relay's tokens ``seq``
+    with the relay's cache lengths (large ``p + MOE_SPLIT``, small the
+    whole sequence).  The expanded steps choose the relay's own new tokens
+    (bit for bit the relay's path); every step's logits of the two modes
+    within ``MLA_MODES_RTOL`` for each model; each new token equal in the
+    two modes wherever the expanded logits' top-2 margin exceeds
+    ``MARGIN_FACTOR`` times the modes' largest difference there (else a
+    tie, counted)."""
+    x = seq.long()
+    n_large = p + MOE_SPLIT
+    forced, rel = {}, {"large": [], "small": []}
+    for mode, (cl, cs) in modes.items():
+        fl = teacher_forced(large, cl, x[:, :n_large])
+        fs = teacher_forced(small, cs, x)
+        forced[mode] = {"large": fl, "small": fs,
+                        "relay": torch.cat([fl[:, :n_large - 1],
+                                            fs[:, n_large - 1:]], 1)}
+    for role in ("large", "small"):
+        e, a = forced["expand"][role].float(), forced["absorb"][role].float()
+        check(torch.isfinite(e).all() and torch.isfinite(a).all(),
+              f"{MOE_DS}: teacher-forced {role} decode logits not finite")
+        rel[role] = [norm_rel(a[:, j], e[:, j]) for j in range(e.shape[1])]
+    worst = max(max(v) for v in rel.values())
+    new = slice(p - 1, seq.shape[1] - 1)  # the logits choosing seq[:, p:]
+    le = forced["expand"]["relay"][:, new]
+    la = forced["absorb"]["relay"][:, new]
+    check(torch.equal(le.argmax(-1).to(seq.dtype), seq[:, p:]),
+          f"{MOE_DS}: teacher-forced expanded decode does not choose the "
+          f"relay's tokens")
+    le, la = le.float(), la.float()
+    top2 = torch.topk(le, 2).values
+    clear = (top2[..., 0] - top2[..., 1]
+             > MARGIN_FACTOR * (le - la).abs().amax(-1))
+    differ = le.argmax(-1) != la.argmax(-1)
+    out = {"decode_logits_rel_max": worst,
+           "decode_logits_rel_by_step": rel,
+           "new_tokens_compared": int(clear.sum()),
+           "new_tokens_tied": int((~clear).sum()),
+           "new_tokens_differing_when_clear": int((differ & clear).sum()),
+           "new_tokens_differing_at_ties": int((differ & ~clear).sum())}
+    check(worst <= MLA_MODES_RTOL,
+          f"{MOE_DS}: absorb vs expand decode logits {worst} "
+          f"(MLA_MODES_RTOL {MLA_MODES_RTOL}): {json.dumps(out)}")
+    check(out["new_tokens_differing_when_clear"] == 0,
+          f"{MOE_DS}: absorb and expand choose different tokens where no "
+          f"tie: {json.dumps(out)}")
+    return out
+
+
+def deepseek_full(dev, total) -> dict:
+    """Phase 22 (b): ``deepseek-v3-671b`` at full width in bf16, cut in
+    depth: the large model one MLA+MoE layer (256 experts, top-8, one
+    shared) and one MLA+dense layer, the small one the MLA+MoE layer;
+    random weights from seeded generators.  ``relay_decode`` of MOE_ROWS
+    prompts at s = MOE_SPLIT of MOE_NEW new tokens and ``sequence_logprob``
+    of its output, with MLA expanded and then absorbed (the same weights):
+    finite logits; the two modes' free-running tokens equal up to a tie
+    (with random weights the tie may come at the first new token, and then
+    this compares the prompt alone), their scoring logits within
+    ``MLA_MODES_RTOL``, and their decode over the latent cache
+    teacher-forced on the same tokens (:func:`mla_modes_decode`); every
+    MoE call against its fp32 oracle; the expanded relay again, equal bit
+    for bit; flash attention never launched (MLA's attention is plain
+    torch)."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.lm_relay import relay_decode, sequence_logprob
+    from repro_torch.training.data import DataConfig, TokenPipeline
+
+    base = configs.get_config(MOE_DS)
+    dense = next(s for s in base.remainder if s.mlp == "dense")
+    cfg_l = base.replace(n_layers=2, remainder=(dense,))
+    cfg_s = base.replace(n_layers=1, remainder=())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    large = tr.init_model(cfg_l, torch.Generator(device=dev).manual_seed(80),
+                          dev)
+    small = tr.init_model(cfg_s, torch.Generator(device=dev).manual_seed(81),
+                          dev)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    sizes = {"large_b": cm.count_params(large) / 1e9,
+             "small_b": cm.count_params(small) / 1e9}
+    check(large.layers[0].moe.router.dtype == torch.float32
+          and large.layers[0].moe.we_gate.dtype == torch.bfloat16,
+          f"{MOE_DS}: router fp32 and experts bf16")
+    prompt = TokenPipeline(DataConfig(
+        vocab_size=base.vocab_size, seq_len=MOE_PROMPT,
+        global_batch=MOE_ROWS)).batch(998)[0]
+    absorb = dataclasses.replace(base.mla, absorb=True)
+    modes = {"expand": (cfg_l, cfg_s),
+             "absorb": (cfg_l.replace(mla=absorb), cfg_s.replace(mla=absorb))}
+    build.reset_launches()
+    runs, stats = {}, {}
+    for mode, (cl, cs) in modes.items():
+        with MoECalls(inputs=True) as calls:
+            (seq, info), ms = host_timed(lambda: relay_decode(
+                large, cl, small, cs, prompt, MOE_SPLIT, MOE_NEW))
+            logp = sequence_logprob(large, cl, seq)
+        runs[mode] = {"seq": seq, "info": info, "ms": ms, "logp": logp}
+        stats[mode] = moe_oracle_checks(f"{MOE_DS} {mode}", calls, cl)
+        del calls
+    launches = {n: build.LAUNCHES[n] for n in ("flash_attention",
+                                               "rglru_scan")}
+    check(launches == {"flash_attention": 0, "rglru_scan": 0},
+          f"{MOE_DS}: launches {launches} (MLA runs no kernel)")
+    for n in launches:
+        total[n] += launches[n]
+    want_calls = (MOE_PROMPT + MOE_SPLIT) + (MOE_PROMPT + MOE_NEW) + 1
+    check(all(s["calls"] == want_calls for s in stats.values()),
+          f"{MOE_DS}: MoE calls {stats}, want {want_calls} a mode")
+    p = MOE_PROMPT
+    prompt_t = torch.from_numpy(prompt).to(dev)
+    for mode, r in runs.items():
+        seq = r["seq"]
+        check(seq.shape == (MOE_ROWS, p + MOE_NEW)
+              and torch.equal(seq[:, :p], prompt_t)
+              and bool(((seq >= 0) & (seq < base.vocab_size)).all())
+              and np.isfinite(r["logp"]),
+              f"{MOE_DS} {mode}: sequence or logp {r['logp']}")
+    # both modes' scoring logits on each run's own tokens, large then small
+    logits = {}
+    with torch.no_grad():
+        for mode, (cl, cs) in modes.items():
+            x = runs[mode]["seq"].long()
+            ll = tr.model_fwd(large, cl, {"tokens": x})[..., :base.vocab_size]
+            ls = tr.model_fwd(small, cs, {"tokens": x})[..., :base.vocab_size]
+            check(torch.isfinite(ll).all() and torch.isfinite(ls).all(),
+                  f"{MOE_DS} {mode}: logits not finite")
+            logits[mode] = torch.cat([ll[:, :p + MOE_SPLIT - 1],
+                                      ls[:, p + MOE_SPLIT - 1:]], 1).float()
+        # the two modes on the expanded run's tokens
+        x = runs["expand"]["seq"].long()
+        absorbed = tr.model_fwd(large, modes["absorb"][0], {"tokens": x})
+        expanded = tr.model_fwd(large, cfg_l, {"tokens": x})
+    modes_rel = norm_rel(absorbed.float(), expanded.float())
+    upto, tie = tokens_upto_tie({m: r["seq"] for m, r in runs.items()},
+                                logits, p, MOE_NEW)
+    check(modes_rel <= MLA_MODES_RTOL, f"{MOE_DS}: absorb vs expand logits "
+          f"{modes_rel} (MLA_MODES_RTOL {MLA_MODES_RTOL})")
+    forced = mla_modes_decode(large, small, modes, runs["expand"]["seq"], p)
+    (again, _), warm_ms = host_timed(lambda: relay_decode(
+        large, cfg_l, small, cfg_s, prompt, MOE_SPLIT, MOE_NEW))
+    check(torch.equal(again, runs["expand"]["seq"]),
+          f"{MOE_DS}: the relay's tokens differ run to run")
+    same = float((runs["expand"]["seq"][:, p:]
+                  == runs["absorb"]["seq"][:, p:]).float().mean())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    times = decode_times(f"{MOE_DS} large ({cfg_l.n_layers} layers)", large,
+                         cfg_l, prompt, stats["expand"])
+    out = {**sizes, "drawn_s": drawn, "peak_gb": peak,
+           "expand_vs_absorb_logits_rel": modes_rel,
+           "tokens_equal_upto": upto, "tie_at": tie,
+           "new_tokens_equal_share": same,
+           "teacher_forced": forced,
+           "logp": {m: r["logp"] for m, r in runs.items()},
+           "ms_per_relay_request": {m: r["ms"] / MOE_ROWS
+                                    for m, r in runs.items()},
+           "ms_per_relay_request_again": warm_ms / MOE_ROWS,
+           "moe": stats, "launches": launches, "decode": times}
+    print(f"{MOE_DS} (bf16, full width; large {cfg_l.n_layers} layers "
+          f"{sizes['large_b']:.3f} B, small {cfg_s.n_layers} layer "
+          f"{sizes['small_b']:.3f} B; relay s = {MOE_SPLIT} of {MOE_NEW}): "
+          f"{json.dumps(out)}")
+    del large, small, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama4_full(dev, total) -> dict:
+    """Phase 22 (c): ``llama4-maverick-400b-a17b`` at full width in bf16,
+    2 layers (dense, then MoE: 128 experts, top-1, one shared), random
+    weights from a seeded generator.  ``greedy_decode`` of MOE_ROWS
+    prompts and MOE_NEW new tokens, then ``sequence_logprob``: flash
+    attention launched exactly once per GQA layer per decode step on the
+    decode kernel (a group of 5) and once per GQA layer in scoring on the
+    scoring kernel; every MoE call against its fp32 oracle; the decode
+    again, equal bit for bit; each flash call of the run replayed on its
+    own operands within ``FLASH_TOL`` of the plain version."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.lm_relay import greedy_decode, sequence_logprob
+    from repro_torch.training.data import DataConfig, TokenPipeline
+
+    cfg = configs.get_config(MOE_L4).replace(n_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(82),
+                          dev)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    params_b = cm.count_params(model) / 1e9
+    prompt = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=MOE_PROMPT,
+        global_batch=MOE_ROWS)).batch(997)[0]
+    kept = []
+
+    def keep(q, k, v, **kw):  # the run's calls, then the kernel
+        kept.append(([x.detach().clone() for x in (q, k, v)], kw))
+        return flash_ops.flash_attention(q, k, v, **kw)
+
+    build.reset_launches()
+    flash_ops.reset_variant_launches()
+    attn.flash_attention = keep
+    try:
+        with MoECalls(inputs=True) as calls:
+            seq, ms = host_timed(lambda: greedy_decode(model, cfg, prompt,
+                                                       MOE_NEW))
+            logp = sequence_logprob(model, cfg, seq)
+    finally:
+        attn.flash_attention = flash_ops.flash_attention
+    launches = {n: build.LAUNCHES[n] for n in ("flash_attention",
+                                               "rglru_scan")}
+    variants = dict(flash_ops.VARIANT_LAUNCHES)
+    steps, n_attn = MOE_PROMPT + MOE_NEW, flash_layers(cfg)
+    want = {"flash_attention": n_attn * (steps + 1), "rglru_scan": 0}
+    check(launches == want, f"{MOE_L4}: launches {launches}, want {want}")
+    check(variants == {"simt": 0, "decode": n_attn * steps,
+                       "scoring": n_attn},
+          f"{MOE_L4}: flash kernels {variants}")
+    for n in launches:
+        total[n] += launches[n]
+    stats = moe_oracle_checks(MOE_L4, calls, cfg)
+    check(stats["calls"] == steps + 1, f"{MOE_L4}: MoE calls {stats}")
+    del calls
+    check(seq.shape == (MOE_ROWS, steps) and np.isfinite(logp)
+          and torch.equal(seq[:, :MOE_PROMPT], torch.from_numpy(prompt)
+                          .to(dev)), f"{MOE_L4}: sequence or logp {logp}")
+    with torch.no_grad():
+        logits = tr.model_fwd(model, cfg, {"tokens": seq.long()})
+    check(torch.isfinite(logits).all(), f"{MOE_L4}: logits not finite")
+    del logits
+    again, warm_ms = host_timed(lambda: greedy_decode(model, cfg, prompt,
+                                                      MOE_NEW))
+    check(torch.equal(again, seq), f"{MOE_L4}: tokens differ run to run")
+    # the kept calls against the plain version (not counted launches)
+    replay = {"decode": [0, 0.0, 0.0], "scoring": [0, 0.0, 0.0]}
+    for (q, k, v), kw in kept:
+        variant = flash_ops.plan(q, k, v).variant
+        check(variant in replay, f"{MOE_L4}: flash call {kw} on {variant}")
+        out = flash_ops.flash_attention(q, k, v, **kw)
+        err, share = flash_share(out, flash_attention_ref(q, k, v, **kw))
+        check(share <= 1.0 and torch.isfinite(out).all(),
+              f"{MOE_L4}: flash {variant} {kw} max |err| {err}, {share} of "
+              f"FLASH_TOL")
+        r = replay[variant]
+        r[0], r[1], r[2] = r[0] + 1, max(r[1], err), max(r[2], share)
+    check(replay["decode"][0] == n_attn * steps
+          and replay["scoring"][0] == n_attn,
+          f"{MOE_L4}: replayed flash calls {replay}")
+    del kept
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    times = decode_times(f"{MOE_L4} ({cfg.n_layers} layers)", model, cfg,
+                         prompt, stats)
+    out = {"params_b": params_b, "drawn_s": drawn, "peak_gb": peak,
+           "logp": logp, "ms_per_request": ms / MOE_ROWS,
+           "ms_per_request_again": warm_ms / MOE_ROWS, "moe": stats,
+           "launches": launches, "flash_variants": variants,
+           "flash_replay": {k: dict(zip(("calls", "max_abs_err",
+                                         "share_of_tol"), v))
+                            for k, v in replay.items()},
+           "decode": times}
+    print(f"{MOE_L4} (bf16, full width, {cfg.n_layers} layers, "
+          f"{params_b:.3f} B): {json.dumps(out)}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_mla_phase(dev) -> dict:
+    """Phase 22: the MoE and MLA models, (a) card against CPU, (b)
+    deepseek-v3-671b and (c) llama4-maverick-400b-a17b at full width, one
+    after the other.  Returns the phase's kernel launches."""
+    from repro_torch.device import keep_fp32
+
+    t0 = time.perf_counter()
+    keep_fp32(dev)  # (a) and the oracles: fp32 products
+    total = dict.fromkeys(KERNELS, 0)
+    moe_card_vs_cpu(dev)
+    deepseek_full(dev, total)
+    llama4_full(dev, total)
+    print(f"MoE/MLA phase launches: {json.dumps(total)}; "
           f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
     return total
 
@@ -4106,6 +4731,9 @@ def main() -> int:
     # ---- 21. LM training ---------------------------------------------------
     lm_train_total = lm_train_phase(dev)
 
+    # ---- 22. MoE and MLA ---------------------------------------------------
+    moe_total = moe_mla_phase(dev)
+
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs
 
@@ -4132,7 +4760,8 @@ def main() -> int:
 
     launches["flash_attention"] = (qwen_launches["flash_attention"]
                                    + rg_launches["flash_attention"]
-                                   + lm_train_total["flash_attention"])
+                                   + lm_train_total["flash_attention"]
+                                   + moe_total["flash_attention"])
     launches["rglru_scan"] = (rg_launches["rglru_scan"]
                               + lm_train_total["rglru_scan"])
     # the rows of the shapes launched most on the LM paths: qwen3-4b's

@@ -17,6 +17,8 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "granite-8b": "granite_8b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 

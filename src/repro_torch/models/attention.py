@@ -1,6 +1,8 @@
-"""GQA attention (port of ``repro/models/attention.py``'s GQA half) with
-qk-norm, RoPE, the logit softcap and a KV cache.  Both the full-sequence
-branch and the one-token decode branch compute their attention through
+"""Attention (port of ``repro/models/attention.py``): GQA with qk-norm,
+RoPE, the logit softcap and a KV cache, and DeepSeek's MLA.
+
+GQA's full-sequence branch and one-token decode branch compute their
+attention through
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention`, the
 hand-written CUDA kernel on the card:
 
@@ -17,10 +19,18 @@ The projections stay plain matrix products, as they are plain ``jnp``
 products in the reference.  Weights keep the reference's einsum layouts:
 ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d).
 
+MLA (multi-head latent attention, :func:`mla_fwd`) caches the compressed
+latents ``{"c_kv", "k_rope"}`` and decodes either by expanding them into
+per-head keys and values or, with ``cfg.mla.absorb``, by folding
+``w_uk``/``w_uv`` into the query and the output and attending over the
+latent itself.  Its attention stays plain torch, as it is plain ``jnp`` in
+the reference: its query/key and value head dims differ (192 and 128
+expanded, 576 and 512 absorbed), and the flash kernel takes one head dim.
+
 Not ported, and raising :class:`NotImplementedError` on every device
-(ROADMAP queue 1 says where each is lifted): cross-attention, MLA, a
-sharded call (head padding), a cached call with more than one token,
-and windowed decode over a cache longer than the window (which the
+(ROADMAP queue 1 says where each is lifted): cross-attention, a sharded
+GQA call (head padding), a cached GQA call with more than one token, and
+windowed decode over a cache longer than the window (which the
 reference's own caches never are).
 """
 from __future__ import annotations
@@ -30,9 +40,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import common as cm
+
+NEG_INF = -2.3819763e38  # the reference's masked logit (fits fp32)
 
 
 class GQA(nn.Module):
@@ -144,4 +156,131 @@ def gqa_fwd(
                               softcap=cfg.attn_softcap, kv_len=kv_len)
     # the kernel's (B, H, S, hd) output is a view of a (B, S, H, hd) buffer
     y = out.transpose(1, 2).reshape(b, s, h * hd) @ p.wo.reshape(h * hd, d)
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA -- multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """MLA weights of one layer, in the reference's einsum layouts:
+    ``w_dq`` (d, q_rank), ``q_norm`` (q_rank,), ``w_uq`` (q_rank, H,
+    nope + rope), ``w_dkv`` (d, kv_rank + rope), ``kv_norm`` (kv_rank,),
+    ``w_uk`` (kv_rank, H, nope), ``w_uv`` (kv_rank, H, v), ``wo`` (H, v,
+    d)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        m: MLAConfig = cfg.mla
+        dt = cm.dtype_of(cfg)
+        d, h = cfg.d_model, cfg.n_heads
+        g = generator
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        self.w_dq = cm.param(cm.dense_init(g, d, (m.q_lora_rank,), dt,
+                                           device))
+        self.q_norm = cm.param(torch.zeros(m.q_lora_rank, dtype=dt,
+                                           device=device))
+        self.w_uq = cm.param(cm.dense_init(g, m.q_lora_rank, (h, qk), dt,
+                                           device))
+        self.w_dkv = cm.param(cm.dense_init(
+            g, d, (m.kv_lora_rank + m.qk_rope_dim,), dt, device))
+        self.kv_norm = cm.param(torch.zeros(m.kv_lora_rank, dtype=dt,
+                                            device=device))
+        self.w_uk = cm.param(cm.dense_init(g, m.kv_lora_rank,
+                                           (h, m.qk_nope_dim), dt, device))
+        self.w_uv = cm.param(cm.dense_init(g, m.kv_lora_rank,
+                                           (h, m.v_head_dim), dt, device))
+        self.wo = cm.param(cm.dense_init(g, h * m.v_head_dim, (d,), dt,
+                                         device).reshape(h, m.v_head_dim, d))
+
+
+def init_mla(cfg: ArchConfig, generator: torch.Generator, device) -> MLA:
+    return MLA(cfg, generator, device)
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+                   device) -> dict:
+    """Zero latent cache {"c_kv" (B, max_len, kv_rank), "k_rope" (B,
+    max_len, rope)} in the config's dtype."""
+    m: MLAConfig = cfg.mla
+    dt = cm.dtype_of(cfg)
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dt,
+                                  device=device)}
+
+
+def _mla_qkv(p: MLA, cfg: ArchConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """``(q_nope, q_rope, c_kv, k_rope)``: the query's two parts (B, S, H,
+    .), RoPE on the second; the normed latent (B, S, kv_rank) and the one
+    shared RoPE key (B, S, rope)."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    cq = cm.rms_norm(x @ p.w_dq, p.q_norm, cfg.norm_eps)
+    q = (cq @ p.w_uq.reshape(m.q_lora_rank, -1)).view(b, s, h, -1)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = cm.apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv_full = x @ p.w_dkv
+    c_kv = cm.rms_norm(ckv_full[..., :m.kv_lora_rank], p.kv_norm,
+                       cfg.norm_eps)
+    k_rope = cm.apply_rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :],
+                           positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_fwd(p: MLA, cfg: ArchConfig, x: torch.Tensor,
+            positions: torch.Tensor, *, cache: Optional[dict] = None,
+            cache_pos: Optional[int] = None):
+    """Full-sequence (``cache=None``) or cached MLA attention; returns
+    ``(out, new_cache)``.  A cached call writes its latents into ``cache``
+    in place at ``cache_pos`` (the reference returns an updated copy) and
+    attends over the whole cache under the causal mask of its positions.
+    The scores, softmax and the value product run in fp32, scaled by
+    1/√(nope + rope); absorbed, the latent output is cast to ``x``'s dtype
+    before ``w_uv``, expanded, the product is cast after."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    f32 = torch.float32
+    scale = 1.0 / torch.sqrt(torch.tensor(
+        float(m.qk_nope_dim + m.qk_rope_dim), dtype=f32))
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+
+    new_cache = cache
+    if cache is not None:
+        t = cache["c_kv"].shape[1]
+        if not 0 <= cache_pos <= t - s:
+            raise ValueError(f"cache_pos {cache_pos} + {s} tokens outside a "
+                             f"cache of {t}")
+        cache["c_kv"][:, cache_pos:cache_pos + s] = c_kv
+        cache["k_rope"][:, cache_pos:cache_pos + s] = k_rope
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        mask = cm.causal_mask(s, t, cache_pos, device=x.device)
+    else:
+        mask = cm.causal_mask(s, s, 0, device=x.device)
+
+    rope_scores = torch.einsum("bshk,btk->bhst", q_rope.to(f32),
+                               k_rope.to(f32))
+    if m.absorb:
+        # fold W_uk into q, attend over the latent itself
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk)
+        scores = (torch.einsum("bshr,btr->bhst", q_lat.to(f32),
+                               c_kv.to(f32)) + rope_scores) * scale
+        probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+        out_lat = torch.einsum("bhst,btr->bshr", probs, c_kv.to(f32))
+        out = torch.einsum("bshr,rhk->bshk", out_lat.to(x.dtype), p.w_uv)
+    else:
+        k_nope = torch.einsum("btr,rhk->bthk", c_kv, p.w_uk)
+        vv = torch.einsum("btr,rhk->bthk", c_kv, p.w_uv)
+        scores = (torch.einsum("bshk,bthk->bhst", q_nope.to(f32),
+                               k_nope.to(f32)) + rope_scores) * scale
+        probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+        out = torch.einsum("bhst,bthk->bshk", probs,
+                           vv.to(f32)).to(x.dtype)
+    y = out.reshape(b, s, h * m.v_head_dim) @ p.wo.reshape(
+        h * m.v_head_dim, -1)
     return y, new_cache

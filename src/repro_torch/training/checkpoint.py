@@ -348,6 +348,10 @@ def _is_leaf(val) -> bool:
     return not isinstance(val, dict) or set(val) == {"q", "s"}
 
 
+#: the leaves of an LM tree outside its layers
+TOP_LEVEL = ("embed", "final_norm", "lm_head", "mtp_norm", "mtp_proj")
+
+
 def lm_tree_from_jax(lm: dict, cfg, *, unstack: bool = True
                      ) -> Dict[str, object]:
     """``{port parameter name: leaf}`` for the reference's ``params["lm"]``
@@ -357,7 +361,7 @@ def lm_tree_from_jax(lm: dict, cfg, *, unstack: bool = True
     len(pattern) + j``, the remainder follows.  With ``unstack=False``
     each of those layers names the whole stacked leaf."""
     n_pat = len(cfg.pattern)
-    out = {k: lm[k] for k in ("embed", "final_norm", "lm_head") if k in lm}
+    out = {k: lm[k] for k in TOP_LEVEL if k in lm}
 
     def pick(val, index):
         if index is None:
@@ -385,13 +389,13 @@ def lm_tree_to_jax(named: Mapping[str, object], cfg) -> dict:
     """The inverse of :func:`lm_tree_from_jax`: the reference's
     ``params["lm"]`` tree (``embed``, ``blocks`` — one dict per pattern
     slot, each leaf the slot's layers stacked on a leading ``n_repeats``
-    axis — ``final_norm``, ``lm_head`` when untied, ``rem`` when the config
-    has a remainder) of ``named`` (port parameter name → tensor or ``{"q",
+    axis — ``final_norm``, ``lm_head`` when untied, ``mtp_norm`` and
+    ``mtp_proj`` with an MTP head, ``rem`` when the config has a
+    remainder) of ``named`` (port parameter name → tensor or ``{"q",
     "s"}`` pair)."""
     n_pat = len(cfg.pattern)
     n_body = cfg.n_repeats * n_pat
-    lm: dict = {k: named[k] for k in ("embed", "final_norm", "lm_head")
-                if k in named}
+    lm: dict = {k: named[k] for k in TOP_LEVEL if k in named}
     slots = [dict() for _ in range(n_pat)]
     rem = [dict() for _ in range(len(cfg.remainder))]
     for name, val in named.items():
@@ -442,9 +446,13 @@ def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
     H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d),
     ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d); an RG-LRU block's
     ``rglru`` leaves ``w_x``, ``w_g``, ``w_a``, ``w_i``, ``w_out``,
-    ``conv_w``, ``conv_b``, ``b_a``, ``b_i``, ``lam`` by name), in fp32;
-    ``load_state_dict`` casts them to each parameter's dtype, so ``lam``
-    stays fp32 in a bf16 model."""
+    ``conv_w``, ``conv_b``, ``b_a``, ``b_i``, ``lam`` by name; a MoE's
+    ``router`` (d, E), ``we_gate``/``we_up`` (E, d, f), ``we_down`` (E, f,
+    d) and ``shared`` MLP; MLA's ``w_dq``, ``w_uq`` (q_rank, H, qk),
+    ``w_dkv``, ``w_uk``/``w_uv`` (kv_rank, H, .), ``wo`` (H, v, d) and its
+    two norms), in fp32; ``load_state_dict`` casts them to each
+    parameter's dtype, so ``lam`` and ``router`` stay fp32 in a bf16
+    model."""
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
             for k, v in lm_tree_from_jax(params_np["lm"], cfg).items()}
 

@@ -8,11 +8,14 @@ the reference takes them.  A train step computes the loss and its
 gradients under autograd (the LM's attention and RG-LRU scan through
 their kernels' ``autograd.Function``), sums micro-batch gradients in fp32
 when ``accum_steps`` > 1, and applies :func:`adamw_update` to the model's
-parameters in place.
+parameters in place.  The loss adds ``AUX_WEIGHT`` times the MoE's balance
+term and, for a config with an MTP head, ``MTP_WEIGHT`` times its cross
+entropy against the labels shifted left once more (wrapping around, as
+``jnp.roll``); the chunked loss leaves MTP out, as the reference's does.
 
-The MTP head, context inputs and encoders are refused, as
+Context inputs and encoders are refused, as
 ``models/transformer.py::check_supported`` refuses them (ROADMAP queue 1,
-items 10(b) and 10(c)); the factories take no mesh (item 11(c)).
+item 10(c)); the factories take no mesh (item 11(c)).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.models import transformer as tr
 from repro_torch.training.checkpoint import lm_leaf_ranks
 from repro_torch.training.optimizer import OptConfig, adamw_update
 
+MTP_WEIGHT = 0.1
 AUX_WEIGHT = 0.01
 
 
@@ -64,7 +68,8 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
                  ce_chunk: Optional[int] = None):
     """``loss_fn(model, batch) -> (loss, {"ce", "aux"})``: CE over
     ``batch["labels"]`` (chunked when ``ce_chunk``) plus ``AUX_WEIGHT``
-    times the aux term."""
+    times the aux term, plus ``MTP_WEIGHT`` times the MTP head's CE on the
+    logits path."""
     tr.check_supported(cfg)
 
     def loss_fn(model: tr.LM, batch: dict):
@@ -73,16 +78,23 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
                 "context inputs are not ported: ROADMAP queue 1, item 10(c) "
                 "(encoder and cross-attention slice)")
         if ce_chunk:
-            h, aux = tr.train_fwd(model, cfg, batch, remat=remat,
-                                  return_hidden=True)
+            h, aux, extras = tr.train_fwd(model, cfg, batch, remat=remat,
+                                          return_hidden=True)
             w = model.embed if cfg.tie_embeddings else model.lm_head
             ce = chunked_ce(h, w, batch["labels"],
                             transpose_w=cfg.tie_embeddings,
                             softcap=cfg.logit_softcap, chunk=ce_chunk)
         else:
-            logits, aux = tr.train_fwd(model, cfg, batch, remat=remat)
+            logits, aux, extras = tr.train_fwd(model, cfg, batch,
+                                               remat=remat)
             ce = cross_entropy(logits, batch["labels"])
-        return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
+        loss = ce + AUX_WEIGHT * aux
+        if "mtp_logits" in extras:
+            # predict token t+2: the labels shifted left once more
+            mtp_labels = torch.roll(batch["labels"], -1, 1)
+            loss = loss + MTP_WEIGHT * cross_entropy(extras["mtp_logits"],
+                                                     mtp_labels)
+        return loss, {"ce": ce, "aux": aux}
 
     return loss_fn
 

@@ -218,7 +218,31 @@ LM_SHAPES = [
     ("rg decode, ring of 16", 8, 16, 1, 1, 16, 256, "decode"),
     ("rg decode, ring of 2048", 8, 16, 1, 1, 2048, 256, "decode"),
     ("rg scoring", 8, 16, 1, 128, 128, 256, "scoring"),
+    # llama4-maverick-400b-a17b: 40 query heads over 8 KV heads (G = 5),
+    # chip_smoke.py phase 22's decode over a cache of 32 and its scoring
+    ("llama4 decode", 8, 40, 8, 1, 32, 128, "decode"),
+    ("llama4 scoring", 8, 40, 8, 32, 32, 128, "scoring"),
 ]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("s,kv_len", [(1, 1), (1, 17), (1, 32), (32, None)],
+                         ids=["decode-1", "decode-17", "decode-32", "scoring"])
+def test_plain_matches_oracle_at_a_group_of_five(s, kv_len, dtype):
+    """llama4's grouping, H = 40 over KV = 8 at head dim 128 (2 rows, T
+    = 32): a decode step at ``kv_len`` (``causal=False``, as the model
+    calls it) and the causal scoring forward, the plain version against
+    the JAX oracle; 5 of the decode kernel's 16 tile rows are live."""
+    (jq, jk, jv), (q, k, v) = _qkv(2, 40, 8, s, 32, 128, dtype,
+                                   seed=s + (kv_len or 0))
+    causal = kv_len is None
+    out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    # the oracle has no kv_len: it attends over the first kv_len keys
+    keys = slice(None) if causal else slice(0, kv_len)
+    ref = attention_ref(jq, jk[:, :, keys], jv[:, :, keys], causal=causal)
+    assert out.shape == (2, 40, s, 128)
+    np.testing.assert_allclose(_f32(out), _f32(ref), atol=TOL[dtype],
+                               rtol=TOL[dtype])
 
 
 @pytest.mark.parametrize("name,b,h,kv,s,t,d,variant", LM_SHAPES)

@@ -13,7 +13,11 @@ checkpoints against the JAX package on the CPU.
   ``repro.training.checkpoint.restore`` bit for bit, and the JAX driver
   resumes it to the port's own losses within 1e-5.
 * Written from the same tree, the two packages' files are equal byte for
-  byte, for fp32, bf16 and log8 optimizer states.
+  byte, for fp32, bf16 and log8 optimizer states, the MoE models' expert
+  stacks and deepseek's MTP head included, and in a bf16 model (whose MoE
+  router stays fp32).
+* ``launch.train`` on reduced ``deepseek-v3-671b`` (MLA, MoE, MTP):
+  resumed bit for bit, its files read by the reference.
 """
 from __future__ import annotations
 
@@ -61,8 +65,10 @@ def _within(mine, theirs, spacings):
             jax.tree_util.keystr(path), float(np.abs(a - b).max() / tol))
 
 
-def _jax_like(name="stablelm-1.6b", state_dtype="fp32"):
+def _jax_like(name="stablelm-1.6b", state_dtype="fp32", dtype=None):
     cfg = jmake_reduced(jconfigs.get_config(name))
+    if dtype:
+        cfg = cfg.replace(dtype=dtype)
     params = jtr.init_model(jax.random.PRNGKey(0), cfg)
     return params, jopt.adamw_init(params, jopt.OptConfig(
         state_dtype=state_dtype))
@@ -129,7 +135,8 @@ def test_port_resume_is_bit_exact(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["qwen3-4b", "recurrentgemma-9b",
-                                  "stablelm-1.6b"])
+                                  "stablelm-1.6b", "deepseek-v3-671b",
+                                  "llama4-maverick-400b-a17b"])
 @pytest.mark.parametrize("state_dtype", ["fp32", "bf16", "int8"])
 def test_checkpoint_bytes_equal_the_reference(name, state_dtype, tmp_path):
     """The reference's init, carried across, with its zero AdamW state:
@@ -161,6 +168,64 @@ def test_checkpoint_bytes_equal_the_reference(name, state_dtype, tmp_path):
     for key in flat:
         assert flat[key].dtype == again[key].dtype
         assert torch.equal(flat[key], again[key]), key
+
+
+def test_bf16_moe_checkpoint_keeps_the_router_fp32_and_the_mtp_head(
+        tmp_path):
+    """Reduced ``deepseek-v3-671b`` in bf16, the reference's init carried
+    across: the port's file equals the reference's byte for byte, the
+    routers are fp32 and the experts and MTP head bf16 in it, and the port
+    reads it back into a model equal to the one it wrote, its routers
+    still fp32."""
+    name = "deepseek-v3-671b"
+    params, state = _jax_like(name, dtype="bfloat16")
+    cfg = configs.make_reduced(configs.get_config(name)).replace(
+        dtype="bfloat16")
+    model = tr.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    model.load_state_dict(ck.lm_params_from_jax(
+        jax.tree.map(np.asarray, params), cfg))
+    pstate = opt.adamw_init(dict(model.named_parameters()), opt.OptConfig())
+    flat = ck.lm_state_to_jax(model, pstate, cfg)
+    meta = {"step": 1, "arch": name}
+    got = ck.save(tmp_path / "p.ckpt", flat, meta)
+    ref = jck.save(tmp_path / "j.ckpt", (params, state), meta=meta)
+    assert got.read_bytes() == ref.read_bytes()
+    assert flat["0/lm/blocks/0/moe/router"].dtype == torch.float32
+    assert flat["0/lm/blocks/0/moe/we_gate"].dtype == torch.bfloat16
+    assert flat["0/lm/blocks/0/moe/we_gate"].shape == (1, 8, 64, 64)
+    assert {"0/lm/mtp_norm", "0/lm/mtp_proj"} <= set(flat)
+    assert flat["0/lm/mtp_proj"].dtype == torch.bfloat16
+    other = tr.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+    back, _ = ck.restore(got, flat)
+    ck.lm_state_from_jax(back, other, cfg)
+    for (n, a), b in zip(model.named_parameters(), other.parameters()):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
+    assert other.layers[0].moe.router.dtype == torch.float32
+    assert other.mtp_proj.dtype == torch.bfloat16
+
+
+def test_launch_train_resumes_deepseek_bit_exact(tmp_path):
+    """``launch.train`` on reduced ``deepseek-v3-671b``: 8 steps, and 4
+    resumed to 8, equal bit for bit; the step-4 file restores in the
+    reference's ``checkpoint.restore`` with the reference's keys and
+    dtypes (the MoE's stacks and the MTP head included)."""
+    name = "deepseek-v3-671b"
+    args = ["--arch", name, "--batch", "2", "--seq", "16",
+            "--ckpt-every", "4", "--device", "cpu"]
+    full = lt.main(args + ["--steps", "8", "--ckpt-dir", str(tmp_path / "a")])
+    lt.main(args + ["--steps", "4", "--ckpt-dir", str(tmp_path / "b")])
+    resumed = lt.main(args + ["--steps", "8", "--resume",
+                              "--ckpt-dir", str(tmp_path / "b")])
+    assert resumed == full[4:] and all(np.isfinite(full))
+    like = _jax_like(name)
+    (params, state), meta = jck.restore(
+        tmp_path / "b" / name / "step_00000004.ckpt", like)
+    assert meta == {"step": 4, "arch": name} and int(state["count"]) == 4
+    flat = ck.load_flat(tmp_path / "b" / name / "step_00000004.ckpt")
+    ref = jck._flatten((params, state))
+    assert list(flat) == list(ref)
+    for key, a in ref.items():
+        assert a.dtype == flat[key].dtype and np.array_equal(a, flat[key])
 
 
 def test_lm_tree_round_trip_keeps_every_leaf():

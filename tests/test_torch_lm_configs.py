@@ -1,17 +1,18 @@
-"""The port's dense configurations (``gemma2-27b``, ``granite-8b``,
-``stablelm-1.6b``, beside ``qwen3-4b`` and ``recurrentgemma-9b``) against
-the JAX package on the CPU: each config field for field, and the reduced
+"""The port's configurations (the dense ``gemma2-27b``, ``granite-8b``,
+``stablelm-1.6b``, beside ``qwen3-4b`` and ``recurrentgemma-9b``, and the
+MoE ``deepseek-v3-671b`` and ``llama4-maverick-400b-a17b``) against the
+JAX package on the CPU: each config field for field, and the reduced
 models (``make_reduced``: d_model 64, 4 heads over at most 2 KV heads of
-16, vocab 512, fp32; gemma2's local window cut to 4) on the reference's
-weights, carried across by ``lm_params_from_jax`` with random non-zero
-norm scales.
+16, vocab 512, fp32; gemma2's local window cut to 4; 8 experts, MLA ranks
+32 and 16) on the reference's weights, carried across by
+``lm_params_from_jax`` with random non-zero norm scales.
 
 Tolerance: logits 1e-5 relative (norm of the difference over the norm of
 the reference; both sides compute in fp32 and differ by the order of the
 sums in the products and in attention, plain ``jnp`` in the reference and
 the kernel's plain version in the port).  The training forward on the
 same models: every parameter gets a gradient, and ``remat`` changes no
-bit.
+bit (the MoE's aux term carried out of each checkpointed layer).
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ torch.set_num_threads(1)
 
 RTOL = 1e-5
 NEW = ("gemma2-27b", "granite-8b", "stablelm-1.6b")
-ALL = ("gemma2-27b", "granite-8b", "qwen3-4b", "recurrentgemma-9b",
+MOE = ("deepseek-v3-671b", "llama4-maverick-400b-a17b")
+ALL = ("deepseek-v3-671b", "gemma2-27b", "granite-8b",
+       "llama4-maverick-400b-a17b", "qwen3-4b", "recurrentgemma-9b",
        "stablelm-1.6b")
 
 
@@ -46,11 +49,15 @@ def _rel(a, b) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(name, seed=0):
-    """The reduced configs and the reference's parameters (immutable, so
-    shared across tests) with random non-zero norm scales."""
+def _reference(name, seed=0, **moe):
+    """The reduced configs (the MoE's fields replaced by ``moe``) and the
+    reference's parameters (immutable, so shared across tests) with random
+    non-zero norm scales."""
     jcfg = jmake_reduced(jconfigs.get_config(name))
     cfg = configs.make_reduced(configs.get_config(name))
+    if moe:
+        jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, **moe))
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
     params = jtr.init_model(jax.random.PRNGKey(seed), jcfg)
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map_with_path(
@@ -60,10 +67,10 @@ def _reference(name, seed=0):
     return jcfg, cfg, params
 
 
-def _models(name, seed=0):
+def _models(name, seed=0, **moe):
     """The reference's configs and parameters, and a fresh port model
     carrying them."""
-    jcfg, cfg, params = _reference(name, seed)
+    jcfg, cfg, params = _reference(name, seed, **moe)
     model = tr.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     model.load_state_dict(lm_params_from_jax(
         jax.tree.map(np.asarray, params), cfg))
@@ -71,7 +78,9 @@ def _models(name, seed=0):
 
 
 def test_list_archs_names_the_five():
-    assert configs.list_archs() == list(ALL)
+    """The five dense and hybrid configurations, and since the MoE slice
+    the two MoE ones: seven."""
+    assert configs.list_archs() == list(ALL) and len(ALL) == 7
     with pytest.raises(KeyError, match="available"):
         configs.get_config("xlstm-1.3b")
 
@@ -165,27 +174,79 @@ def _batch(cfg, rows=4, seq=16, seed=1):
             for k in ("tokens", "labels")}
 
 
-@pytest.mark.parametrize("name", ["gemma2-27b", "recurrentgemma-9b"])
+# (name, MLA absorb, MoE top_k): deepseek's two MLA decode paths; llama4
+# at its top-1 (against the reference's decode only) and at top-2 (against
+# the forward as well: the reference's test_decode_matches_forward runs
+# top-1 MoE at k = 2, since a batch and single tokens may flip a
+# knife-edge top-1 routing by their sums' order)
+MOE_DECODE = [("deepseek-v3-671b", False, None),
+              ("deepseek-v3-671b", True, None),
+              ("llama4-maverick-400b-a17b", False, None),
+              ("llama4-maverick-400b-a17b", False, 2)]
+
+
+@pytest.mark.parametrize("name,absorb,top_k", MOE_DECODE,
+                         ids=["ds-expand", "ds-absorb", "l4-top1", "l4-top2"])
+def test_moe_decode_matches_reference_and_the_forward(name, absorb, top_k):
+    """Token-by-token decode over 10 tokens: each step's logits within
+    1e-5 of the reference's decode (and of the full forward at that
+    position, but at llama4's top-1); MLA's latent cache within 1e-5 of
+    the reference's after the last step."""
+    jcfg, cfg, params, model = _models(
+        name, 3, **({"top_k": top_k} if top_k else {}))
+    if absorb:
+        jcfg = jcfg.replace(mla=dataclasses.replace(jcfg.mla, absorb=True))
+        cfg = cfg.replace(mla=dataclasses.replace(cfg.mla, absorb=True))
+    n = 10
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, n))
+    toks = toks.astype(np.int32)
+    full = tr.model_fwd(model, cfg, {"tokens": torch.from_numpy(toks)})
+    jcache = jtr.init_model_cache(jcfg, 2, n)
+    cache = tr.init_model_cache(cfg, 2, n, device="cpu")
+    step = jax.jit(jtr.decode_step, static_argnums=1)
+    for t in range(n):
+        tok = toks[:, t:t + 1]
+        ref, jcache = step(params, jcfg, jcache, jnp.asarray(tok),
+                           jnp.int32(t))
+        out, cache = tr.decode_step(model, cfg, cache, torch.from_numpy(tok),
+                                    t)
+        assert _rel(out.numpy(), ref) <= RTOL
+        if cfg.moe.top_k > 1:
+            assert _rel(out[:, 0].numpy(), full[:, t].numpy()) <= RTOL
+    if cfg.mla is not None:
+        # the MoE layer is the one pattern slot; the dense layers follow
+        assert _rel(cache["layers"][0]["c_kv"].numpy(),
+                    jcache["blocks"][0]["c_kv"][0]) <= RTOL
+        assert _rel(cache["layers"][1]["k_rope"].numpy(),
+                    jcache["rem"][0]["k_rope"]) <= RTOL
+
+
+@pytest.mark.parametrize("name", ["gemma2-27b", "recurrentgemma-9b", *MOE])
 def test_remat_changes_no_bit(name):
     """``remat`` recomputes each layer in the backward pass: the loss and
-    every gradient equal the stored-activation run's bit for bit."""
+    every gradient equal the stored-activation run's bit for bit (for the
+    MoE models with the aux term, carried out of each checkpointed layer,
+    and deepseek's MTP loss)."""
     _, cfg, _, model = _models(name)
     batch = _batch(cfg)
     model.requires_grad_(True)
     out = []
     for remat in (False, True):
-        loss, _ = ts.make_loss_fn(cfg, remat=remat)(model, batch)
+        loss, parts = ts.make_loss_fn(cfg, remat=remat)(model, batch)
         grads = torch.autograd.grad(loss, list(model.parameters()))
-        out.append((loss.detach(), grads))
+        out.append((loss.detach(), grads, parts["aux"].detach()))
     assert torch.equal(out[0][0], out[1][0])
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    assert torch.equal(out[0][2], out[1][2])
+    assert (float(out[1][2]) > 0) == (cfg.moe is not None)
 
 
 @pytest.mark.parametrize("name", ALL)
 def test_every_parameter_gets_a_gradient(name):
     """Through both kernels' ``autograd.Function``: no parameter of the
-    five reduced models is left without a gradient (the card check holds
-    the same on CUDA)."""
+    seven reduced models is left without a gradient (the card check holds
+    the same on CUDA); the MoE's experts and router, MLA's weights and the
+    MTP head included."""
     _, cfg, _, model = _models(name)
     batch = _batch(cfg)
     model.requires_grad_(True)

@@ -215,15 +215,27 @@ def test_weight_carry_over_unstacks_the_blocks(models):
 
 
 def test_unported_paths_raise(models):
+    """xLSTM, cross-attention, a sharded call and a chunked prefill raise;
+    a MoE layer and MLA, which raised before the MoE/MLA slice, build and
+    run (a forward and a decode step, finite)."""
     _, model = models
     with pytest.raises(NotImplementedError, match="xLSTM"):
         tr.init_model(CFG.replace(pattern=(LayerSpec(mixer="mlstm"),)),
                       torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tr.init_model(CFG.replace(pattern=(LayerSpec(mlp="moe"),),
-                                  moe=MoEConfig()), torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tr.init_model(CFG.replace(mla=MLAConfig()), torch.Generator(), "cpu")
+    toks = torch.zeros(1, 3, dtype=torch.long)
+    for cfg in (CFG.replace(pattern=(LayerSpec(mlp="moe"),),
+                            moe=MoEConfig(n_experts=4, d_ff_expert=32)),
+                CFG.replace(mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                          qk_nope_dim=16, qk_rope_dim=8,
+                                          v_head_dim=16))):
+        m = tr.init_model(cfg, torch.Generator(), "cpu")
+        assert torch.isfinite(tr.model_fwd(m, cfg, {"tokens": toks})).all()
+        cache = tr.init_model_cache(cfg, 1, 4, device="cpu")
+        step, _ = tr.decode_step(m, cfg, cache, toks[:, :1], 0)
+        assert torch.isfinite(step).all()
+    with pytest.raises(ValueError, match="cfg.moe"):
+        tr.init_model(CFG.replace(pattern=(LayerSpec(mlp="moe"),)),
+                      torch.Generator(), "cpu")
     p = model.layers[0].attn
     x = torch.zeros(1, 2, 64)
     pos = torch.zeros(1, 2, dtype=torch.long)
