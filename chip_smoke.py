@@ -10,7 +10,9 @@ table, the sequential serving engine, the continuous-batching runtime
 and a fleet of three clusters over that table, the serving driver end to
 end, diffusion training and the Table III baselines, LM training on
 seven configurations, the MoE and MLA models (``deepseek-v3-671b``,
-``llama4-maverick-400b-a17b``) at full width cut in depth, the LM prefix
+``llama4-maverick-400b-a17b``) at full width cut in depth, the encoder
+and cross-attention models (``whisper-medium`` at full width and depth,
+``llama-3.2-vision-11b`` at full width cut in depth), the LM prefix
 relay at ``qwen3-4b`` width and the same relay at ``recurrentgemma-9b``
 width —
 and holds every CUDA kernel against its plain PyTorch version.  Phases,
@@ -77,10 +79,18 @@ each failing the run (non-zero exit, no result line) on any mismatch:
    ``gemma2-27b``'s training shape (q (2, 32, 64, 128) over 16 KV heads,
    softcap 50, causal, window 16 and global); ``llama4-maverick-400b-a17b``'s
    group of 5 (q (8, 40, 1, 128) over 8 KV heads and a cache of 32, kv_len
-   1, 17, 32, and scoring at S = T = 32);
+   1, 17, 32, and scoring at S = T = 32); phase 23's non-causal shapes
+   over a context: ``whisper-medium``'s encoder (4 x 16 heads of 64,
+   S = T = 1,500: scoring at D 64), its cross calls at the prompt (S = 16
+   at a group of 1: the decode kernel's 16 rows) and in decode over 1,500
+   frames, ``llama-3.2-vision-11b``'s at the prompt (S = 16 at a group of
+   4: scoring with S != T, a ragged query tile) and in decode over 1,600
+   patches, and a prompt of 70 over 1,500 frames (ragged tiles on both
+   axes);
 7. flash attention's times per shape (both models' decode and scoring,
-   4096, the two long-cache decodes, in the model's layout): the
-   kernel's, the plain version's and SDPA's beside the bound;
+   4096, the two long-cache decodes, phase 23's encoder and cross calls,
+   in the model's layout): the kernel's, the plain version's and SDPA's
+   beside the bound;
 11. the RG-LRU scan against its plain version, bit for bit: the path's
     shape (8, 128, 4096), ragged shapes, S = 1 and (1, 4096, 4096); then
     its times at (8, 128, 4096) and (1, 4096, 4096) beside the plain
@@ -308,16 +318,42 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     bit, every flash call replayed within ``FLASH_TOL`` of the plain
     version; for (b) and (c) the peak memory, ms per decode step, the
     busy share and the step's byte bounds (every expert read, as the
-    reference's dispatch reads them; only the routed ones).
+    reference's dispatch reads them; only the routed ones);
+23. encoders and cross-attention (``models/transformer.py``'s
+    ``Encoder``, cross layers and ``ctx_proj``, ``gqa_fwd`` over a
+    context, the train, prefill and serve steps with one): (a)
+    ``make_reduced`` of ``whisper-medium`` and ``llama-3.2-vision-11b``
+    in fp32 card against CPU on the same weights and seeded context: the
+    prefill logits, ``ENC_CHECK_STEPS`` teacher-forced decode steps (and
+    each against its device's prefill), within ``LM_RTOL``, and one train
+    step as phase 21 (a) holds it, every gradient (encoder, cross layers,
+    ``ctx_proj``) non-``None``; (b) ``whisper-medium`` at full width and
+    depth (24 decoder and 24 encoder layers, bf16) and (c)
+    ``llama-3.2-vision-11b`` at full width cut to ``VISION_LAYERS`` (two
+    super-blocks of a cross and four self layers, ``ctx_proj`` 7,680 to
+    4,096, bf16), each serving ``ENC_ROWS`` requests (1,500 seeded frames
+    or a (1,600, 7,680) seeded context each; prompts of ``ENC_PROMPT``,
+    ``ENC_NEW`` greedy tokens) through ``make_prefill_step`` and
+    ``make_serve_step`` with the context: every flash call replayed
+    within ``FLASH_TOL`` of the plain version, launches by variant equal
+    to the count derived from ``ops.plan``'s rule (whisper's decode step:
+    24 encoder scoring, 24 self and 24 cross decode launches), each
+    decode step and the prompt's prefill within ``ENC_LOGITS_RTOL`` of
+    the prefill teacher-forced over the whole sequence, a second run
+    equal bit for bit; ms per prefill and per decode step beside the
+    step's bound (weight and context bytes over the HBM rate plus the
+    context's operations over the bf16 rate), the busy share, the peak
+    memory.
 
-The phases run in the order 1-7, 11, 15-22, 8-10, 12-14.  Every
+The phases run in the order 1-7, 11, 15-23, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
 over phases 3 and 15-20; flash attention's over phases 8, the traced
-relay included, 12, 21 and 22; the scan's over 12 and 21), the card's line,
+relay included, 12, 21, 22 and 23; the scan's over 12 and 21), the card's
+line,
 and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -542,6 +578,31 @@ MOE_ORACLE_RTOL = 2e-2
 # 700 W), whose readings repeat bit for bit, their weights and tokens
 # drawn from fixed seeds
 MLA_MODES_RTOL = 2e-2
+# phase 23, encoders and cross-attention: ENC_ROWS requests of ENC_PROMPT
+# prompt tokens and ENC_NEW new ones; whisper-medium's ENC_FRAMES frames,
+# llama-3.2-vision-11b's VISION_CTX patches cut to VISION_LAYERS layers
+# (two super-blocks of (cross, self x 4))
+ENC_NAMES = ("whisper-medium", "llama-3.2-vision-11b")
+ENC_ROWS, ENC_PROMPT, ENC_NEW = 4, 16, 16
+ENC_FRAMES, VISION_CTX, VISION_LAYERS = 1500, 1600, 10
+# (a): teacher-forced decode steps card against CPU (MOE_CHECK_ROWS
+# sequences); (b) and (c): each bf16 decode step's logits and the prompt's
+# prefill logits against the prefill teacher-forced over the whole
+# sequence, norm-wise: the two paths round different bf16 intermediates
+# (decode or scoring kernel, one row or all, the encoder re-run at each
+# step).  1.8x the largest reading (1.65e-2, whisper's first step of 32; its
+# prompt's prefill 1.41e-2; vision 1.18e-2 and 1.16e-2; H100 80GB HBM3,
+# 700 W); the same prefill without the context must differ from it by
+# more than ENC_CTX_FACTOR times the tolerance
+ENC_CHECK_STEPS = 8
+ENC_LOGITS_RTOL, ENC_CTX_FACTOR = 3e-2, 2.0
+# the full-width runs' context scale: whisper's frames at (a)'s 0.1 (its
+# encoder ends in a norm; they move its logits by 1.19); vision's patches
+# at 4: with random weights its two cross layers' softmax over 1,600 keys
+# is nearly flat at scales 0.1 and 1, the patches average out and move the
+# logits by 1.19e-2 and 3.53e-2 only, within the bf16 noise of the check
+# above (H100 80GB HBM3, 700 W)
+ENC_CTX_SCALE = {"whisper-medium": 0.1, "llama-3.2-vision-11b": 4.0}
 
 
 def check(ok: bool, what: str) -> None:
@@ -754,7 +815,7 @@ def flash_work(b, h, kv, s, t, d, causal, window, kv_len, esize):
     query attends read once; 4·D operations (two multiply-adds) per
     attended (query, key) pair."""
     q_pos, k_pos = np.arange(s)[:, None], np.arange(t)[None, :]
-    mask = k_pos < kv_len
+    mask = np.broadcast_to(k_pos < kv_len, (s, t))
     if causal:
         mask = mask & (k_pos <= q_pos)
     if window is not None:
@@ -790,6 +851,73 @@ def flash_share(out, ref) -> tuple:
     diff = (out.double() - ref.double()).abs()
     return (float(diff.max()),
             float((diff / (atol + rtol * ref.double().abs())).max()))
+
+
+class FlashReplay:
+    """While active, each flash call of ``models/attention.py`` runs the
+    kernel, and the kernel's output on the call's operands is held within
+    ``FLASH_TOL`` of the plain version's: at once, or, with ``keep=n``,
+    for the first ``n`` calls after the run, their operands cloned (a
+    decode's cache moves on under them) and launched again by
+    :meth:`replay`.  ``log`` keeps each checked call's variant, keywords,
+    largest |err| and largest share of the tolerance; ``read`` sums it per
+    variant.  A replay launches after the counted run and the plain
+    version launches no kernel, so the counts are the path's."""
+
+    def __init__(self, what: str, keep=None):
+        self.what, self.keep, self.kept, self.log = what, keep, [], []
+
+    def _check(self, q, k, v, kw, out):
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.kernels.flash_attention.ref import \
+            flash_attention_ref
+
+        variant = ops.plan(q, k, v).variant
+        err, share = flash_share(out, flash_attention_ref(q, k, v, **kw))
+        check(share <= 1.0 and bool(torch.isfinite(out).all()),
+              f"{self.what}: flash {variant} {tuple(q.shape)} over "
+              f"{tuple(k.shape)} {kw}: max |err| {err}, {share} of "
+              f"FLASH_TOL")
+        self.log.append((variant, kw, err, share))
+
+    @property
+    def read(self) -> dict:
+        out = {}
+        for variant, _, err, share in self.log:
+            r = out.setdefault(variant, [0, 0.0, 0.0])
+            r[0], r[1], r[2] = r[0] + 1, max(r[1], err), max(r[2], share)
+        return out
+
+    def replay(self) -> dict:
+        from repro_torch.kernels.flash_attention import ops
+
+        for (q, k, v), kw in self.kept:
+            self._check(q, k, v, kw, ops.flash_attention(q, k, v, **kw))
+        self.kept = []
+        return self.read
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.models import attention as attn
+
+        def call(q, k, v, **kw):
+            out = ops.flash_attention(q, k, v, **kw)
+            if self.keep is None:
+                self._check(q, k, v, kw, out)
+            elif len(self.kept) < self.keep:
+                self.kept.append(([x.detach().clone() for x in (q, k, v)],
+                                  kw))
+            return out
+
+        attn.flash_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.models import attention as attn
+
+        attn.flash_attention = ops.flash_attention
+        return False
 
 
 def check_flash(gen, dev) -> float:
@@ -851,6 +979,20 @@ def check_flash(gen, dev) -> float:
                torch.bfloat16, True) for kl in (1, 17, steps)]
     cases.append((MOE_ROWS, 40, 8, steps, steps, 128, True, None, None, None,
                   torch.bfloat16, True))
+    # phase 23's encoders and cross-attention, non-causal over all T keys:
+    # whisper-medium's encoder (scoring at D 64) and its cross calls at the
+    # prompt (S·G = 16: decode) and in decode; llama-3.2-vision-11b's
+    # cross calls at the prompt (S·G = 64: scoring with S != T and a
+    # ragged query tile) and in decode; a longer whisper prompt (scoring
+    # at D 64, ragged tiles on both axes)
+    cases += [(b, h, kv, s, t, d, False, None, None, None, torch.bfloat16,
+               True) for (b, h, kv, s, t, d) in (
+                   (ENC_ROWS, 16, 16, ENC_FRAMES, ENC_FRAMES, 64),
+                   (ENC_ROWS, 16, 16, ENC_PROMPT, ENC_FRAMES, 64),
+                   (ENC_ROWS, 16, 16, 1, ENC_FRAMES, 64),
+                   (ENC_ROWS, 32, 8, ENC_PROMPT, VISION_CTX, 128),
+                   (ENC_ROWS, 32, 8, 1, VISION_CTX, 128),
+                   (2, 16, 16, 70, ENC_FRAMES, 64))]
     worst, used = 0.0, {}
     for (b, h, kv, s, t, d, causal, window, cap, kv_len, dtype,
          layout) in cases:
@@ -2996,17 +3138,28 @@ def lm_train_batch(cfg, rows: int, seq: int, step: int, where) -> dict:
             "labels": torch.from_numpy(labels).to(where)}
 
 
-def flash_layers(cfg) -> int:
-    """The layers of ``cfg`` whose attention is the flash kernel's: its
-    GQA layers (MLA's attention is plain torch, as in the reference)."""
-    return 0 if cfg.mla is not None else mixer_layers(cfg, "attn")
+def flash_layers(cfg, ctx: bool = False) -> int:
+    """The flash-attention calls of one forward of ``cfg``: its GQA
+    layers (MLA's attention is plain torch, as in the reference); with
+    ``ctx`` (a forward over a context), also each cross layer's call and
+    each encoder layer's."""
+    from repro_torch.models import transformer as tr
+
+    if cfg.mla is not None:
+        return 0
+    n = mixer_layers(cfg, "attn")
+    if ctx:
+        n += sum(spec.cross_attn for spec in tr.layer_specs(cfg))
+        n += cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return n
 
 
-def lm_launches(cfg, forwards: int) -> dict:
-    """The kernel launches of ``forwards`` training forwards of ``cfg``:
-    flash attention once per GQA layer, the scan once per RG-LRU layer (a
-    backward launches neither: it is the plain versions' VJP)."""
-    return {"flash_attention": flash_layers(cfg) * forwards,
+def lm_launches(cfg, forwards: int, ctx: bool = False) -> dict:
+    """The kernel launches of ``forwards`` training forwards of ``cfg``
+    (over a context with ``ctx``): flash attention once per call of
+    :func:`flash_layers`, the scan once per RG-LRU layer (a backward
+    launches neither: it is the plain versions' VJP)."""
+    return {"flash_attention": flash_layers(cfg, ctx) * forwards,
             "rglru_scan": mixer_layers(cfg, "rglru") * forwards}
 
 
@@ -3020,15 +3173,10 @@ def lm_train_step_checks(dev, total) -> dict:
     update difference the two gradients predict; phase 20's floor
     statistics printed beside); seconds per step on each device.  The
     comparisons run on the card in fp64.  The kernels launch as
-    :func:`lm_launches` counts, exactly."""
-    import copy
-
+    :func:`lm_launches` counts, exactly (:func:`lm_step_case`)."""
     from repro_torch import configs
     from repro_torch.device import keep_fp32
-    from repro_torch.kernels import build
     from repro_torch.models import transformer as tr
-    from repro_torch.training import optimizer as opt
-    from repro_torch.training import train_step as ts
 
     keep_fp32(dev)  # as launch/train.py does: fp32 products
     cpu = torch.device("cpu")
@@ -3037,113 +3185,14 @@ def lm_train_step_checks(dev, total) -> dict:
     cases.append((f"{LM_FULL_NAME}/full", configs.get_config(
         LM_FULL_NAME).replace(n_layers=LM_FULL_LAYERS, dtype="float32"),
         LM_FULL_ROWS, LM_FULL_SEQ))
-    c = opt.OptConfig(**LM_TRAIN_OPT)
     out = {}
     for k, (what, cfg, rows, seq) in enumerate(cases):
-        t_case = time.perf_counter()
         card = tr.init_model(cfg, torch.Generator(device=dev)
                              .manual_seed(40 + k), dev)
-        models = {"card": card, "cpu": copy.deepcopy(card).to(cpu)}
-        places = {"card": dev, "cpu": cpu}
         batches = {key: lm_train_batch(cfg, rows, seq, k, where)
-                   for key, where in places.items()}
-        loss_fn = ts.make_loss_fn(cfg, remat=False)
-        read, steps, seconds = {}, {}, {}
-        for key in ("cpu", "card"):
-            model = models[key]
-            build.reset_launches()
-            model.requires_grad_(True)
-            loss, _ = loss_fn(model, batches[key])
-            names, params = zip(*model.named_parameters())
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            read[key] = (float(loss.detach()), dict(zip(names, grads)))
-            # the whole step, from the same weights (timed on the CPU)
-            step = ts.make_train_step(cfg, c, remat=False)
-            state = opt.adamw_init(dict(model.named_parameters()), c)
-            t0 = time.perf_counter()
-            _, state, m = step(model, state, batches[key])
-            steps[key] = ({n: p.detach().clone() for n, p in
-                           model.named_parameters()},
-                          {n: float(v) for n, v in m.items()})
-            seconds[key] = time.perf_counter() - t0
-            # on the card, seconds per step over more steps on the batch
-            reps = LM_TIMED_STEPS if key == "card" else 0
-            if reps:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    _, state, m = step(model, state, batches[key])
-                float(m["loss"])
-                seconds[key] = (time.perf_counter() - t0) / reps
-            if key == "card":  # the gradients' forward, the step's, reps
-                got = {n: build.LAUNCHES[n] for n in
-                       ("flash_attention", "rglru_scan")}
-                want = lm_launches(cfg, 2 + reps)
-                check(got == want, f"{what}: launches {got}, want {want}")
-                for n in got:
-                    total[n] += got[n]
-        (l_cpu, g_cpu), (l_card, g_card) = read["cpu"], read["card"]
-        missing = sorted(n for n in g_cpu if g_cpu[n] is None
-                         or g_card[n] is None)
-        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-        grad_rel = {n: float((g_card[n].double() - g.to(dev).double())
-                             .abs().max() / g.to(dev).double().abs().max()
-                             .clamp_min(1e-30))
-                    for n, g in g_cpu.items() if n not in missing}
-        (p_cpu, m_cpu), (p_card, m_card) = steps["cpu"], steps["card"]
-        metric_rel = {n: abs(m_card[n] - m_cpu[n]) / abs(m_cpu[n])
-                      for n in ("loss", "grad_norm")}
-        lr_ulps = ulps(m_card["lr"], m_cpu["lr"])
-        # Adam's first update is lr·x/(|x| + eps), x the clipped gradient:
-        # each element is held within TRAIN_PARAM_RTOL of its tensor's
-        # largest |p| plus twice the difference its two gradients predict
-        # (large only where |x| is near eps)
-        def update(g, norm):  # on the card, in fp64
-            x = g.detach().to(dev).double() * min(
-                1.0, c.grad_clip / (norm + 1e-9))
-            return x / (x.abs() + c.eps)
-        worst, excess, floor, beyond = 0.0, 0.0, 0, 0
-        for name, p in p_cpu.items():
-            if name in missing:
-                continue
-            p = p.to(dev).double()
-            scale = float(p.abs().max())
-            err = (p_card[name].double() - p).abs()
-            pred = m_cpu["lr"] * (update(g_card[name], m_card["grad_norm"])
-                                  - update(g_cpu[name], m_cpu["grad_norm"])
-                                  ).abs()
-            excess = max(excess, float((err / (TRAIN_PARAM_RTOL * scale
-                                                + 2 * pred)).max()))
-            g = g_cpu[name].detach().to(dev).abs()
-            low = g < max(GRAD_FLOOR * float(g.max()), EPS_FLOOR)
-            if (~low).any():
-                worst = max(worst, float(err[~low].max()) / scale)
-            floor += int(low.sum())
-            beyond += int((err[low] > TRAIN_PARAM_RTOL * scale).sum())
-        out[what] = {"loss_rel": loss_rel,
-                     "grad_rel": max(grad_rel.values()),
-                     "grad_rel_at": max(grad_rel, key=grad_rel.get),
-                     "params_with_grad": len(grad_rel),
-                     "step_rel": metric_rel, "lr_ulps": lr_ulps,
-                     "param_bound_share": excess,
-                     "param_rel_off_floor": worst, "floor_elements": floor,
-                     "floor_beyond": beyond,
-                     "card_s": seconds["card"], "cpu_s": seconds["cpu"],
-                     "case_s": time.perf_counter() - t_case}
-        print(f"LM training step card vs CPU, {what}: "
-              f"{json.dumps(out[what])}")
-        check(missing == [], f"{what}: parameters without a gradient "
-              f"{missing}")
-        check(loss_rel <= TRAIN_LOSS_RTOL,
-              f"{what}: loss card {l_card} vs CPU {l_cpu}")
-        check(max(grad_rel.values()) <= TRAIN_GRAD_RTOL,
-              f"{what}: gradient card vs CPU rel {max(grad_rel.values())}")
-        check(max(metric_rel.values()) <= TRAIN_LOSS_RTOL,
-              f"{what}: step metrics card {m_card} vs CPU {m_cpu}")
-        check(lr_ulps <= TRAIN_ADAM_ULPS, f"{what}: lr {lr_ulps} ulps")
-        check(excess <= 1.0, f"{what}: parameters after a step beyond their "
-              f"bound ({excess} of it)")
-        del models, card, read, steps
+                   for key, where in (("card", dev), ("cpu", cpu))}
+        out[what] = lm_step_case(dev, what, cfg, card, batches, total)
+        del card
         torch.cuda.empty_cache()
     print(f"LM training step card vs CPU: fp32; reduced at "
           f"{LM_TRAIN_ROWS} x {LM_TRAIN_SEQ} tokens, {LM_FULL_NAME} full "
@@ -3151,6 +3200,122 @@ def lm_train_step_checks(dev, total) -> dict:
           f"{LM_FULL_SEQ}; seconds per step: the card over "
           f"{LM_TIMED_STEPS} more steps, the CPU of the checked step")
     return out
+
+
+def lm_step_case(dev, what, cfg, card, batches, total) -> dict:
+    """One case of :func:`lm_train_step_checks`: the model ``card`` (on
+    the card) and a copy of it on the CPU, each trained one step on its
+    batch of ``batches`` (``"card"``, ``"cpu"``; the same values, a
+    context included if any), checked as that function says; the kernels'
+    launches added to ``total``."""
+    import copy
+
+    from repro_torch.kernels import build
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    t_case = time.perf_counter()
+    cpu = torch.device("cpu")
+    c = opt.OptConfig(**LM_TRAIN_OPT)
+    models = {"card": card, "cpu": copy.deepcopy(card).to(cpu)}
+    with_ctx = "ctx" in batches["card"]
+    loss_fn = ts.make_loss_fn(cfg, remat=False)
+    read, steps, seconds = {}, {}, {}
+    for key in ("cpu", "card"):
+        model = models[key]
+        build.reset_launches()
+        model.requires_grad_(True)
+        loss, _ = loss_fn(model, batches[key])
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        read[key] = (float(loss.detach()), dict(zip(names, grads)))
+        # the whole step, from the same weights (timed on the CPU)
+        step = ts.make_train_step(cfg, c, remat=False)
+        state = opt.adamw_init(dict(model.named_parameters()), c)
+        t0 = time.perf_counter()
+        _, state, m = step(model, state, batches[key])
+        steps[key] = ({n: p.detach().clone() for n, p in
+                       model.named_parameters()},
+                      {n: float(v) for n, v in m.items()})
+        seconds[key] = time.perf_counter() - t0
+        # on the card, seconds per step over more steps on the batch
+        reps = LM_TIMED_STEPS if key == "card" else 0
+        if reps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                _, state, m = step(model, state, batches[key])
+            float(m["loss"])
+            seconds[key] = (time.perf_counter() - t0) / reps
+        if key == "card":  # the gradients' forward, the step's, reps
+            got = {n: build.LAUNCHES[n] for n in
+                   ("flash_attention", "rglru_scan")}
+            want = lm_launches(cfg, 2 + reps, with_ctx)
+            check(got == want, f"{what}: launches {got}, want {want}")
+            for n in got:
+                total[n] += got[n]
+    (l_cpu, g_cpu), (l_card, g_card) = read["cpu"], read["card"]
+    missing = sorted(n for n in g_cpu if g_cpu[n] is None
+                     or g_card[n] is None)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = {n: float((g_card[n].double() - g.to(dev).double())
+                         .abs().max() / g.to(dev).double().abs().max()
+                         .clamp_min(1e-30))
+                for n, g in g_cpu.items() if n not in missing}
+    (p_cpu, m_cpu), (p_card, m_card) = steps["cpu"], steps["card"]
+    metric_rel = {n: abs(m_card[n] - m_cpu[n]) / abs(m_cpu[n])
+                  for n in ("loss", "grad_norm")}
+    lr_ulps = ulps(m_card["lr"], m_cpu["lr"])
+    # Adam's first update is lr·x/(|x| + eps), x the clipped gradient:
+    # each element is held within TRAIN_PARAM_RTOL of its tensor's
+    # largest |p| plus twice the difference its two gradients predict
+    # (large only where |x| is near eps)
+    def update(g, norm):  # on the card, in fp64
+        x = g.detach().to(dev).double() * min(
+            1.0, c.grad_clip / (norm + 1e-9))
+        return x / (x.abs() + c.eps)
+    worst, excess, floor, beyond = 0.0, 0.0, 0, 0
+    for name, p in p_cpu.items():
+        if name in missing:
+            continue
+        p = p.to(dev).double()
+        scale = float(p.abs().max())
+        err = (p_card[name].double() - p).abs()
+        pred = m_cpu["lr"] * (update(g_card[name], m_card["grad_norm"])
+                              - update(g_cpu[name], m_cpu["grad_norm"])
+                              ).abs()
+        excess = max(excess, float((err / (TRAIN_PARAM_RTOL * scale
+                                            + 2 * pred)).max()))
+        g = g_cpu[name].detach().to(dev).abs()
+        low = g < max(GRAD_FLOOR * float(g.max()), EPS_FLOOR)
+        if (~low).any():
+            worst = max(worst, float(err[~low].max()) / scale)
+        floor += int(low.sum())
+        beyond += int((err[low] > TRAIN_PARAM_RTOL * scale).sum())
+    res = {"loss_rel": loss_rel,
+           "grad_rel": max(grad_rel.values()),
+           "grad_rel_at": max(grad_rel, key=grad_rel.get),
+           "params_with_grad": len(grad_rel),
+           "step_rel": metric_rel, "lr_ulps": lr_ulps,
+           "param_bound_share": excess,
+           "param_rel_off_floor": worst, "floor_elements": floor,
+           "floor_beyond": beyond,
+           "card_s": seconds["card"], "cpu_s": seconds["cpu"],
+           "case_s": time.perf_counter() - t_case}
+    print(f"LM training step card vs CPU, {what}: {json.dumps(res)}")
+    check(missing == [], f"{what}: parameters without a gradient "
+          f"{missing}")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"{what}: loss card {l_card} vs CPU {l_cpu}")
+    check(max(grad_rel.values()) <= TRAIN_GRAD_RTOL,
+          f"{what}: gradient card vs CPU rel {max(grad_rel.values())}")
+    check(max(metric_rel.values()) <= TRAIN_LOSS_RTOL,
+          f"{what}: step metrics card {m_card} vs CPU {m_cpu}")
+    check(lr_ulps <= TRAIN_ADAM_ULPS, f"{what}: lr {lr_ulps} ulps")
+    check(excess <= 1.0, f"{what}: parameters after a step beyond their "
+          f"bound ({excess} of it)")
+    del models, read, steps
+    return res
 
 
 def lm_bf16_training(dev, total) -> dict:
@@ -3169,8 +3334,6 @@ def lm_bf16_training(dev, total) -> dict:
     from repro_torch import configs
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models import attention as attn
     from repro_torch.models import common as cm
     from repro_torch.models import transformer as tr
     from repro_torch.training import optimizer as opt
@@ -3188,24 +3351,16 @@ def lm_bf16_training(dev, total) -> dict:
     state = opt.adamw_init(dict(model.named_parameters()), c)
     step = ts.make_train_step(cfg, c, remat=True, ce_chunk=LM_BF16_CHUNK)
     batch = lm_train_batch(cfg, LM_FULL_ROWS, LM_FULL_SEQ, 0, dev)
-    calls, n_attn = [], mixer_layers(cfg, "attn")
-
-    def keep(q, k, v, **kw):  # the first forward's calls, then the kernel
-        if len(calls) < n_attn:
-            calls.append(([x.detach() for x in (q, k, v)], kw))
-        return flash_ops.flash_attention(q, k, v, **kw)
-
     build.reset_launches()
     flash_ops.reset_variant_launches()
     losses, times = [], []
-    attn.flash_attention = keep
-    try:
+    # the first forward's calls, kept
+    with FlashReplay(f"{LM_BF16_NAME} bf16",
+                     keep=mixer_layers(cfg, "attn")) as flash:
         for _ in range(LM_BF16_STEPS):
             (_, state, m), ms = host_timed(lambda: step(model, state, batch))
             losses.append(float(m["loss"]))
             times.append(ms / 1e3)
-    finally:
-        attn.flash_attention = flash_ops.flash_attention
     got = {n: build.LAUNCHES[n] for n in ("flash_attention", "rglru_scan")}
     want = lm_launches(cfg, 2 * LM_BF16_STEPS)  # forward + recompute
     check(got == want, f"{LM_BF16_NAME} bf16: launches {got}, want {want}")
@@ -3225,21 +3380,17 @@ def lm_bf16_training(dev, total) -> dict:
           f"{LM_BF16_STEPS} steps: {still}")
     del before
     # the kept calls against the plain version (not counted launches)
+    read = flash.replay()
     windows = [spec.window for spec in tr.layer_specs(cfg)]
-    check([kw["window"] for _, kw in calls] == windows
-          and all(kw["softcap"] == cfg.attn_softcap for _, kw in calls),
-          f"{LM_BF16_NAME} bf16: kept flash calls {[kw for _, kw in calls]}")
-    replay = []
-    for (q, k, v), kw in calls:
-        check(flash_ops.plan(q, k, v).variant == "scoring",
-              f"{LM_BF16_NAME} bf16: {kw} not on the scoring kernel")
-        out = flash_ops.flash_attention(q, k, v, **kw)
-        err, share = flash_share(out, flash_attention_ref(q, k, v, **kw))
-        replay.append({"window": kw["window"], "softcap": kw["softcap"],
-                       "max_abs_err": err, "share_of_tol": share})
-        check(share <= 1.0 and torch.isfinite(out).all(),
-              f"{LM_BF16_NAME} bf16: flash {kw} max |err| {err}, {share} "
-              f"of FLASH_TOL")
+    check([kw["window"] for _, kw, _, _ in flash.log] == windows
+          and all(kw["softcap"] == cfg.attn_softcap
+                  for _, kw, _, _ in flash.log)
+          and set(read) == {"scoring"},
+          f"{LM_BF16_NAME} bf16: kept flash calls "
+          f"{[(v, kw) for v, kw, _, _ in flash.log]}")
+    replay = [{"window": kw["window"], "softcap": kw["softcap"],
+               "max_abs_err": err, "share_of_tol": share}
+              for _, kw, err, share in flash.log]
     out = {"params_b": cm.count_params(model) / 1e9, "losses": losses,
            "first_step_s": times[0],
            "step_s": float(np.median(times[1:])), "launches": got,
@@ -3247,7 +3398,7 @@ def lm_bf16_training(dev, total) -> dict:
     print(f"{LM_BF16_NAME} bf16 training on the card (full width, 2 layers, "
           f"window {LM_BF16_WINDOW}, ce_chunk {LM_BF16_CHUNK}, remat, "
           f"{LM_FULL_ROWS} x {LM_FULL_SEQ} tokens): {json.dumps(out)}")
-    del model, state, calls
+    del model, state, flash
     torch.cuda.empty_cache()
     return out
 
@@ -3750,8 +3901,6 @@ def llama4_full(dev, total) -> dict:
     from repro_torch import configs
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models import attention as attn
     from repro_torch.models import common as cm
     from repro_torch.models import transformer as tr
     from repro_torch.serving.lm_relay import greedy_decode, sequence_logprob
@@ -3768,26 +3917,19 @@ def llama4_full(dev, total) -> dict:
     prompt = TokenPipeline(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=MOE_PROMPT,
         global_batch=MOE_ROWS)).batch(997)[0]
-    kept = []
-
-    def keep(q, k, v, **kw):  # the run's calls, then the kernel
-        kept.append(([x.detach().clone() for x in (q, k, v)], kw))
-        return flash_ops.flash_attention(q, k, v, **kw)
+    steps, n_attn = MOE_PROMPT + MOE_NEW, flash_layers(cfg)
 
     build.reset_launches()
     flash_ops.reset_variant_launches()
-    attn.flash_attention = keep
-    try:
-        with MoECalls(inputs=True) as calls:
-            seq, ms = host_timed(lambda: greedy_decode(model, cfg, prompt,
-                                                       MOE_NEW))
-            logp = sequence_logprob(model, cfg, seq)
-    finally:
-        attn.flash_attention = flash_ops.flash_attention
+    # the run's calls, kept
+    with FlashReplay(MOE_L4, keep=n_attn * (steps + 1)) as flash, \
+            MoECalls(inputs=True) as calls:
+        seq, ms = host_timed(lambda: greedy_decode(model, cfg, prompt,
+                                                   MOE_NEW))
+        logp = sequence_logprob(model, cfg, seq)
     launches = {n: build.LAUNCHES[n] for n in ("flash_attention",
                                                "rglru_scan")}
     variants = dict(flash_ops.VARIANT_LAUNCHES)
-    steps, n_attn = MOE_PROMPT + MOE_NEW, flash_layers(cfg)
     want = {"flash_attention": n_attn * (steps + 1), "rglru_scan": 0}
     check(launches == want, f"{MOE_L4}: launches {launches}, want {want}")
     check(variants == {"simt": 0, "decode": n_attn * steps,
@@ -3809,21 +3951,12 @@ def llama4_full(dev, total) -> dict:
                                                       MOE_NEW))
     check(torch.equal(again, seq), f"{MOE_L4}: tokens differ run to run")
     # the kept calls against the plain version (not counted launches)
-    replay = {"decode": [0, 0.0, 0.0], "scoring": [0, 0.0, 0.0]}
-    for (q, k, v), kw in kept:
-        variant = flash_ops.plan(q, k, v).variant
-        check(variant in replay, f"{MOE_L4}: flash call {kw} on {variant}")
-        out = flash_ops.flash_attention(q, k, v, **kw)
-        err, share = flash_share(out, flash_attention_ref(q, k, v, **kw))
-        check(share <= 1.0 and torch.isfinite(out).all(),
-              f"{MOE_L4}: flash {variant} {kw} max |err| {err}, {share} of "
-              f"FLASH_TOL")
-        r = replay[variant]
-        r[0], r[1], r[2] = r[0] + 1, max(r[1], err), max(r[2], share)
-    check(replay["decode"][0] == n_attn * steps
-          and replay["scoring"][0] == n_attn,
+    replay = flash.replay()
+    check(replay.get("decode", [0])[0] == n_attn * steps
+          and replay.get("scoring", [0])[0] == n_attn
+          and set(replay) <= {"decode", "scoring"},
           f"{MOE_L4}: replayed flash calls {replay}")
-    del kept
+    del flash
     peak = torch.cuda.max_memory_allocated() / 1e9
     times = decode_times(f"{MOE_L4} ({cfg.n_layers} layers)", model, cfg,
                          prompt, stats)
@@ -3855,6 +3988,326 @@ def moe_mla_phase(dev) -> dict:
     deepseek_full(dev, total)
     llama4_full(dev, total)
     print(f"MoE/MLA phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+    return total
+
+
+# ---- 23. encoders and cross-attention -----------------------------------
+
+
+def context_of(cfg, rows: int, seed: int, dev, dtype=torch.float32,
+               scale: float = 0.1):
+    """Phase 23's seeded context on ``dev``: frames (rows, n_frames,
+    d_enc) for a config with an encoder, patches (rows, ctx_len, ctx_dim)
+    otherwise; N(0, scale²) (0.1 is the scale of the reference's
+    ``tests/test_models.py``), drawn in fp32 and cast to ``dtype``."""
+    shape = ((rows, cfg.encoder.n_frames, cfg.encoder.d_model)
+             if cfg.encoder is not None else (rows, cfg.ctx_len, cfg.ctx_dim))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def ctx_variants(cfg, s: int) -> dict:
+    """Flash launches by variant of one forward of ``s`` tokens over a
+    context, by ``ops.plan``'s rule (bf16 at a tensor-core head dim: the
+    S·G rows fit the decode tile, else scoring; otherwise the CUDA-core
+    kernel): each self-attention and cross layer at ``s`` rows, each
+    encoder layer at its frames."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as tr
+
+    def variant(rows, c):
+        if c.dtype != "bfloat16" or c.head_dim not in ops.TENSOR_CORE_HEAD_DIMS:
+            return "simt"
+        g = c.n_heads // c.n_kv_heads
+        return "decode" if rows * g <= ops.DECODE_ROWS else "scoring"
+
+    out = dict.fromkeys(ops.VARIANTS, 0)
+    out[variant(s, cfg)] += mixer_layers(cfg, "attn") + sum(
+        spec.cross_attn for spec in tr.layer_specs(cfg))
+    if cfg.encoder is not None:
+        ecfg = tr.encoder_cfg(cfg)
+        out[variant(cfg.encoder.n_frames, ecfg)] += ecfg.n_layers
+    return out
+
+
+def ctx_serve(model, cfg, prompt, ctx, n_new: int) -> dict:
+    """Phase 23's serving of one batch of requests: ``make_prefill_step``
+    over the prompt and the context; ``make_serve_step`` fed the prompt
+    token by token (the cache filled as ``greedy_decode`` fills it: a
+    cached call of more than one token is not ported), then ``n_new``
+    greedy tokens, the context passed at every step; then the prefill
+    step teacher-forced over the whole sequence.  Returns the tokens, the
+    prompt's prefill logits, each decode step's logits (B, P + n, V; step
+    j reads token j) and the teacher-forced prefill's, on the vocabulary,
+    the decode's cache, and the host ms of the prompt's prefill, of the
+    decode loop and of the whole call."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import train_step as ts
+
+    prefill, serve = ts.make_prefill_step(cfg), ts.make_serve_step(cfg)
+    (b, p), voc = prompt.shape, cfg.vocab_size
+    first, prefill_ms = host_timed(
+        lambda: prefill(model, {"tokens": prompt, "ctx": ctx})[..., :voc])
+
+    def decode():
+        cache = tr.init_model_cache(cfg, b, p + n_new, device=prompt.device)
+        seq, steps = prompt, []
+        for j in range(p + n_new):
+            lg, cache = serve(model, cache, seq[:, j:j + 1], j, ctx=ctx)
+            steps.append(lg[:, 0, :voc])
+            if j >= p - 1 and seq.shape[1] < p + n_new:
+                nxt = lg[:, -1, :voc].argmax(-1, keepdim=True)
+                seq = torch.cat([seq, nxt.to(seq.dtype)], 1)
+        return seq, torch.stack(steps, 1), cache
+
+    (seq, steps, cache), decode_ms = host_timed(decode)
+    forced, forced_ms = host_timed(
+        lambda: prefill(model, {"tokens": seq, "ctx": ctx})[..., :voc])
+    return {"seq": seq, "prompt_logits": first, "steps": steps,
+            "forced": forced, "cache": cache, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms,
+            "wall_ms": prefill_ms + decode_ms + forced_ms}
+
+
+def ctx_step_bound(model, cfg, ctx) -> dict:
+    """A decode step's bound over the context ``ctx``: the bytes it reads
+    (every weight once — the embedding whole as a tied head, else its rows
+    — and the context) over ``HBM_BYTES_PER_S``, plus the operations it
+    spends on the context over ``BF16_OPS_PER_S``: the encoder's layers
+    over the frames (projections, MLP, attention), ``ctx_proj``, and each
+    cross layer's K/V projections over T rows and its attention of one
+    query row.  The decoder's own products are in the bytes."""
+    from repro_torch.models import transformer as tr
+
+    rows, t = ctx.shape[:2]
+    nbytes = ctx.numel() * ctx.element_size()
+    for name, p in model.named_parameters():
+        n = p.numel()
+        if name == "embed" and not cfg.tie_embeddings:
+            n = rows * p.shape[1]
+        nbytes += n * p.element_size()
+    ops = 0
+    if cfg.encoder is not None:
+        e = tr.encoder_cfg(cfg)
+        per = (2 * e.d_model * (e.n_heads + 2 * e.n_kv_heads) * e.head_dim
+               + 2 * e.n_heads * e.head_dim * e.d_model
+               + 3 * 2 * e.d_model * e.d_ff)
+        ops += e.n_layers * (rows * t * per
+                             + 4 * e.head_dim * rows * e.n_heads * t * t)
+    if cfg.ctx_dim:
+        ops += 2 * rows * t * cfg.ctx_dim * cfg.d_model
+    n_cross = sum(spec.cross_attn for spec in tr.layer_specs(cfg))
+    ops += n_cross * (2 * 2 * rows * t * cfg.d_model * cfg.n_kv_heads
+                      * cfg.head_dim
+                      + 4 * cfg.head_dim * rows * cfg.n_heads * t)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return {"bound_ms": (t_bytes + t_ops) * 1e3,
+            "bytes_ms": t_bytes * 1e3, "context_ops_ms": t_ops * 1e3,
+            "weight_and_context_gb": nbytes / 1e9,
+            "context_tflop": ops / 1e12}
+
+
+def ctx_card_vs_cpu(dev, total) -> dict:
+    """Phase 23 (a): ``make_reduced`` of both configurations in fp32, the
+    same weights (drawn on the card, copied) and context on the card and
+    the CPU: the prefill logits with the context, ``ENC_CHECK_STEPS``
+    teacher-forced decode steps with it (each device's also against its
+    prefill), within ``LM_RTOL``; then one train step with the context as
+    phase 21 (a) holds it (:func:`lm_step_case`: the loss, every gradient
+    — encoder, cross layers and ``ctx_proj`` included, none ``None`` —
+    and the parameters after AdamW).  Flash launches once per call of
+    :func:`flash_layers` with the context, exactly."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import train_step as ts
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {}
+    for i, name in enumerate(ENC_NAMES):
+        cfg = configs.make_reduced(configs.get_config(name))
+        card = tr.init_model(cfg, torch.Generator(device=dev)
+                             .manual_seed(90 + i), dev)
+        ctx = context_of(cfg, MOE_CHECK_ROWS, 92 + i, dev)
+        toks = lm_train_batch(cfg, MOE_CHECK_ROWS, MOE_CHECK_SEQ, i,
+                              cpu)["tokens"].long()
+        prefill, serve = ts.make_prefill_step(cfg), ts.make_serve_step(cfg)
+        read = {}
+        for key, model, where in (("card", card, dev),
+                                  ("cpu", copy.deepcopy(card).to(cpu), cpu)):
+            x, c = toks.to(where), ctx.to(where)
+            build.reset_launches()
+            logits = prefill(model, {"tokens": x, "ctx": c})
+            cache = tr.init_model_cache(cfg, MOE_CHECK_ROWS, ENC_CHECK_STEPS,
+                                        device=where)
+            steps = []
+            for j in range(ENC_CHECK_STEPS):
+                lg, cache = serve(model, cache, x[:, j:j + 1], j, ctx=c)
+                steps.append(lg[:, 0])
+            read[key] = (logits.cpu(), torch.stack(steps, 1).cpu())
+            if key == "card":
+                got = build.LAUNCHES["flash_attention"]
+                want = flash_layers(cfg, ctx=True) * (1 + ENC_CHECK_STEPS)
+                check(got == want, f"{name}: flash launches {got}, want "
+                      f"{want}")
+                total["flash_attention"] += got
+        res = {"prefill_rel": norm_rel(read["card"][0], read["cpu"][0]),
+               "decode_rel": norm_rel(read["card"][1], read["cpu"][1]),
+               "decode_vs_prefill_rel": max(
+                   norm_rel(r[1], r[0][:, :ENC_CHECK_STEPS])
+                   for r in read.values())}
+        check(max(res.values()) <= LM_RTOL,
+              f"{name} card vs CPU with a context: {res}")
+        batches = {key: dict(lm_train_batch(cfg, LM_TRAIN_ROWS, LM_TRAIN_SEQ,
+                                            i, where),
+                             ctx=context_of(cfg, LM_TRAIN_ROWS, 94 + i,
+                                            dev).to(where))
+                   for key, where in (("card", dev), ("cpu", cpu))}
+        res["train_step"] = lm_step_case(dev, f"{name} (reduced, with a "
+                                         f"context)", cfg, card, batches,
+                                         total)
+        out[name] = res
+        del card
+    print(f"encoders and cross-attention card vs CPU (make_reduced, fp32, "
+          f"{MOE_CHECK_ROWS} x {MOE_CHECK_SEQ} tokens, {ENC_CHECK_STEPS} "
+          f"decode steps; {time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(out)}")
+    return out
+
+
+def ctx_full(dev, name: str, cfg, seed: int, total) -> dict:
+    """Phase 23 (b) and (c): ``cfg`` at full width in bf16 (random weights
+    and a context of scale ``ENC_CTX_SCALE[name]`` from seeded
+    generators) serving ENC_ROWS requests of ENC_PROMPT prompt tokens and
+    ENC_NEW new ones (:func:`ctx_serve`).
+    The checked run: every flash call replayed on its operands
+    (:class:`FlashReplay`), the launches by variant equal to
+    :func:`ctx_variants`' count, each decode step's logits and the
+    prompt's prefill logits within ``ENC_LOGITS_RTOL`` of the
+    teacher-forced prefill's, which differs from the same prefill without
+    the context by more than ``ENC_CTX_FACTOR`` times that tolerance (a
+    decode step that lost its context would fail it).  The timed run,
+    unchecked: tokens and logits
+    equal to the checked run's bit for bit; ms per prefill and per decode
+    step, the step's bound (:func:`ctx_step_bound`), the busy share of
+    one decode step, the peak memory."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.data import DataConfig, TokenPipeline
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+    ctx = context_of(cfg, ENC_ROWS, seed + 1, dev, torch.bfloat16,
+                     ENC_CTX_SCALE[name])
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    params_b = cm.count_params(model) / 1e9
+    prompt = torch.from_numpy(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=ENC_PROMPT,
+        global_batch=ENC_ROWS)).batch(997)[0]).to(dev)
+    n_steps = ENC_PROMPT + ENC_NEW
+
+    build.reset_launches()
+    flash_ops.reset_variant_launches()
+    with FlashReplay(name) as replay:
+        run = ctx_serve(model, cfg, prompt, ctx, ENC_NEW)
+    launches = build.LAUNCHES["flash_attention"]
+    variants = dict(flash_ops.VARIANT_LAUNCHES)
+    want = dict.fromkeys(flash_ops.VARIANTS, 0)
+    for s, times in ((ENC_PROMPT, 1), (1, n_steps), (n_steps, 1)):
+        for k, n in ctx_variants(cfg, s).items():
+            want[k] += n * times
+    check(variants == want and launches == sum(want.values())
+          and build.LAUNCHES["rglru_scan"] == 0,
+          f"{name}: flash launches {launches} by variant {variants}, want "
+          f"{want}")
+    total["flash_attention"] += launches
+    seq, steps, forced = run["seq"], run["steps"], run["forced"]
+    check(seq.shape == (ENC_ROWS, n_steps)
+          and torch.equal(seq[:, :ENC_PROMPT], prompt)
+          and all(bool(torch.isfinite(x).all())
+                  for x in (steps, forced, run["prompt_logits"])),
+          f"{name}: tokens {tuple(seq.shape)} or logits not finite")
+    step_rel = [norm_rel(steps[:, j], forced[:, j]) for j in range(n_steps)]
+    prompt_rel = norm_rel(run["prompt_logits"], forced[:, :ENC_PROMPT])
+    check(max(step_rel) <= ENC_LOGITS_RTOL
+          and prompt_rel <= ENC_LOGITS_RTOL,
+          f"{name}: decode steps against the teacher-forced prefill "
+          f"{max(step_rel)}, the prompt's prefill {prompt_rel} "
+          f"(ENC_LOGITS_RTOL {ENC_LOGITS_RTOL})")
+    with torch.no_grad():
+        bare = tr.model_fwd(model, cfg, {"tokens": seq})[..., :cfg.vocab_size]
+    ctx_rel = norm_rel(bare, forced)
+    check(ctx_rel > ENC_CTX_FACTOR * ENC_LOGITS_RTOL,
+          f"{name}: the context moves the logits by {ctx_rel} only, under "
+          f"{ENC_CTX_FACTOR} x ENC_LOGITS_RTOL")
+    del bare
+    timed = ctx_serve(model, cfg, prompt, ctx, ENC_NEW)
+    check(torch.equal(timed["seq"], seq) and torch.equal(timed["steps"], steps)
+          and torch.equal(timed["forced"], forced),
+          f"{name}: the unchecked run differs from the checked one")
+    prefill_ms = min(run["prefill_ms"], timed["prefill_ms"])
+    step_ms = timed["decode_ms"] / n_steps
+    # the last decode step again, on its own cache (it rewrites the same
+    # K/V): its unprofiled wall time and its profiled device time
+    serve, last = ts.make_serve_step(cfg), seq[:, -1:]
+
+    def one_step():
+        return serve(model, timed["cache"], last, n_steps - 1, ctx=ctx)
+    _, one_ms = host_timed(one_step)
+    share = busy(one_step, one_ms)
+    bound = ctx_step_bound(model, cfg, ctx)
+    out = {"params_b": params_b, "drawn_s": drawn,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
+           "step_bound": bound,
+           "share_of_bound": bound["bound_ms"] / step_ms,
+           "busy": share, "flash_launches": launches,
+           "flash_variants": variants,
+           "flash_replay": {k: dict(zip(("calls", "max_abs_err",
+                                         "share_of_tol"), v))
+                            for k, v in replay.read.items()},
+           "decode_vs_forced_rel_max": max(step_rel),
+           "decode_vs_forced_rel_by_step": step_rel,
+           "prompt_prefill_vs_forced_rel": prompt_rel,
+           "logits_rtol": ENC_LOGITS_RTOL,
+           "forced_without_ctx_rel": ctx_rel,
+           "case_s": time.perf_counter() - t0}
+    print(f"{name} (bf16, full width, {cfg.n_layers} layers"
+          f"{', encoder ' + str(cfg.encoder.n_layers) if cfg.encoder else ''}"
+          f", {params_b:.3f} B; {ENC_ROWS} requests, {ENC_PROMPT} + "
+          f"{ENC_NEW} tokens): {json.dumps(out)}; card: {card_line()}")
+    del model, ctx, run, timed
+    torch.cuda.empty_cache()
+    return out
+
+
+def ctx_phase(dev) -> dict:
+    """Phase 23: encoders and cross-attention, (a) card against CPU on the
+    reduced configurations, (b) ``whisper-medium`` at full width and
+    depth, (c) ``llama-3.2-vision-11b`` at full width cut to
+    ``VISION_LAYERS`` layers.  Returns the phase's kernel launches."""
+    from repro_torch import configs
+    from repro_torch.device import keep_fp32
+
+    t0 = time.perf_counter()
+    keep_fp32(dev)  # (a): fp32 products
+    total = dict.fromkeys(KERNELS, 0)
+    ctx_card_vs_cpu(dev, total)
+    whisper, vision = ENC_NAMES
+    ctx_full(dev, whisper, configs.get_config(whisper), 95, total)
+    ctx_full(dev, vision, configs.get_config(vision).replace(
+        n_layers=VISION_LAYERS), 97, total)
+    print(f"encoder/cross-attention phase launches: {json.dumps(total)}; "
           f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
     return total
 
@@ -4241,6 +4694,20 @@ def flash_times(dev, floor_ms) -> dict:
                          50),
         "rg_decode_t2048": (LM_BATCH, 16, 1, 1, 2048, 256, False, None, 2048,
                             100),
+        # phase 23: whisper-medium's encoder and cross calls (prompt,
+        # decode), llama-3.2-vision-11b's cross calls, a longer prompt
+        "enc_whisper": (ENC_ROWS, 16, 16, ENC_FRAMES, ENC_FRAMES, 64, False,
+                        None, None, 20),
+        "cross_whisper_prompt": (ENC_ROWS, 16, 16, ENC_PROMPT, ENC_FRAMES,
+                                 64, False, None, None, 100),
+        "cross_whisper_decode": (ENC_ROWS, 16, 16, 1, ENC_FRAMES, 64, False,
+                                 None, None, 200),
+        "cross_vision_prompt": (ENC_ROWS, 32, 8, ENC_PROMPT, VISION_CTX, 128,
+                                False, None, None, 100),
+        "cross_vision_decode": (ENC_ROWS, 32, 8, 1, VISION_CTX, 128, False,
+                                None, None, 200),
+        "cross_whisper_s70": (2, 16, 16, 70, ENC_FRAMES, 64, False, None,
+                              None, 100),
     }
     rows = {}
     for name, (b, h, kv, s, t, d, causal, window, kv_len,
@@ -4734,6 +5201,9 @@ def main() -> int:
     # ---- 22. MoE and MLA ---------------------------------------------------
     moe_total = moe_mla_phase(dev)
 
+    # ---- 23. encoders and cross-attention --------------------------------
+    ctx_total = ctx_phase(dev)
+
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs
 
@@ -4761,7 +5231,8 @@ def main() -> int:
     launches["flash_attention"] = (qwen_launches["flash_attention"]
                                    + rg_launches["flash_attention"]
                                    + lm_train_total["flash_attention"]
-                                   + moe_total["flash_attention"])
+                                   + moe_total["flash_attention"]
+                                   + ctx_total["flash_attention"])
     launches["rglru_scan"] = (rg_launches["rglru_scan"]
                               + lm_train_total["rglru_scan"])
     # the rows of the shapes launched most on the LM paths: qwen3-4b's

@@ -19,6 +19,8 @@ _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "whisper-medium": "whisper_medium",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
 }
 
 

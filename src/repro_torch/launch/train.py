@@ -5,7 +5,10 @@ A real training loop on the card (the CPU with ``--device cpu``):
 reduced configurations unless ``--full``; the deterministic token
 pipeline; AdamW; periodic asynchronous checkpoints in the reference's
 format, so either package resumes the other's; checkpoint-resume; a
-heartbeat and straggler monitor.  Weights are drawn from a
+heartbeat and straggler monitor.  A configuration that reads a context
+(``whisper-medium``'s frames, ``llama-3.2-vision-11b``'s patches) trains
+on a zero fp32 context of its shape, as the reference's driver feeds it.
+Weights are drawn from a
 ``torch.Generator`` seeded 0 (the reference's ``jax.random`` bits are not
 reproduced).  The flags are the reference's, plus ``--device`` (CUDA
 unless named; no fallback to the CPU).
@@ -85,6 +88,13 @@ def main(argv=None):
         toks, labels = data.batch(step)
         batch = {"tokens": torch.from_numpy(toks).to(device),
                  "labels": torch.from_numpy(labels).to(device)}
+        if cfg.ctx_dim:
+            batch["ctx"] = torch.zeros((args.batch, cfg.ctx_len, cfg.ctx_dim),
+                                       device=device)
+        if cfg.encoder is not None:
+            batch["ctx"] = torch.zeros(
+                (args.batch, cfg.encoder.n_frames, cfg.encoder.d_model),
+                device=device)
         t0 = time.time()
         model, opt_state, metrics = step_fn(model, opt_state, batch)
         loss = float(metrics["loss"])

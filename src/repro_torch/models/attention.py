@@ -13,7 +13,12 @@ hand-written CUDA kernel on the card:
 * decode of a sliding-window layer, whose cache is a ring of ``w <=
   window`` slots: the new K/V goes to slot ``cache_pos % w``, then
   ``causal=False, kv_len=min(cache_pos + 1, w)`` over the whole ring — the
-  reference's ring-buffer validity mask.
+  reference's ring-buffer validity mask;
+* cross-attention (``ctx`` given, (B, T, d_model) after the LM's
+  ``ctx_proj`` or the encoder): K and V projected from ``ctx`` by the
+  layer's own ``wk``/``wv``, no RoPE on Q or K, then ``causal=False`` over
+  all T context rows, with no mask and no cache, in a full-sequence call
+  and inside a decode step alike.
 
 The projections stay plain matrix products, as they are plain ``jnp``
 products in the reference.  Weights keep the reference's einsum layouts:
@@ -28,10 +33,10 @@ the reference: its query/key and value head dims differ (192 and 128
 expanded, 576 and 512 absorbed), and the flash kernel takes one head dim.
 
 Not ported, and raising :class:`NotImplementedError` on every device
-(ROADMAP queue 1 says where each is lifted): cross-attention, a sharded
-GQA call (head padding), a cached GQA call with more than one token, and
-windowed decode over a cache longer than the window (which the
-reference's own caches never are).
+(ROADMAP queue 1 says where each is lifted): a sharded GQA call (head
+padding), a cached GQA call with more than one token, and windowed decode
+over a cache longer than the window (which the reference's own caches
+never are).
 """
 from __future__ import annotations
 
@@ -93,34 +98,41 @@ def gqa_fwd(
     causal: bool = True,
     mesh=None,
 ):
-    """Full-sequence (``cache=None``) or one-token decode GQA attention.
+    """Full-sequence (``cache=None``) or one-token decode GQA attention,
+    or cross-attention over ``ctx`` (B, T, d_model).
 
     Returns ``(out, new_cache)``.  ``cache`` holds {"k", "v"} of shape
     (B, max_len, KV, hd) and ``cache_pos`` is the write index (an int).
     The port writes the new K/V into ``cache`` in place (the reference
-    returns an updated copy) and returns the same dict."""
-    if ctx is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported: ROADMAP queue 1, item 10 "
-            "(encoder and cross-attention slice)")
+    returns an updated copy) and returns the same dict.  A cross call
+    takes K and V from ``ctx``, skips RoPE, attends over every context
+    row and leaves ``cache`` alone (the reference passes none)."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded attention (and its head padding) is not ported: "
             "ROADMAP queue 1, item 11")
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if ctx is None else ctx  # the keys' and values' source
+    t = src.shape[1]
     q = (x @ p.wq.reshape(d, h * hd)).view(b, s, h, hd)
-    k = (x @ p.wk.reshape(d, kv * hd)).view(b, s, kv, hd)
-    v = (x @ p.wv.reshape(d, kv * hd)).view(b, s, kv, hd)
+    k = (src @ p.wk.reshape(d, kv * hd)).view(b, t, kv, hd)
+    v = (src @ p.wv.reshape(d, kv * hd)).view(b, t, kv, hd)
 
     if cfg.qk_norm:  # before RoPE, as the reference
         q = cm.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = cm.rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = cm.apply_rope(q, positions, cfg.rope_theta)
-    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    if ctx is None:
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = cache
-    if cache is None:
+    if ctx is not None:
+        # cross-attention: every context row, no mask, no cache
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=False,
+                              softcap=cfg.attn_softcap)
+    elif cache is None:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=(window or None) if causal else None,

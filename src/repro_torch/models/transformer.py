@@ -1,17 +1,29 @@
 """LM transformer (port of ``repro/models/transformer.py``) for layers of
 GQA or MLA attention (global or sliding-window) or the Griffin RG-LRU
-block, with a dense, a mixture-of-experts or no MLP: ``qwen3-4b`` and the
-other dense configurations, the hybrid ``recurrentgemma-9b``, and the MoE
-models ``deepseek-v3-671b`` (MLA, MTP head) and
-``llama4-maverick-400b-a17b``.
+block, with a dense, a mixture-of-experts or no MLP, and optionally a
+cross-attention block over a context: ``qwen3-4b`` and the other dense
+configurations, the hybrid ``recurrentgemma-9b``, the MoE models
+``deepseek-v3-671b`` (MLA, MTP head) and ``llama4-maverick-400b-a17b``,
+the encoder-decoder ``whisper-medium`` (:class:`Encoder` over precomputed
+frame embeddings) and ``llama-3.2-vision-11b`` (precomputed patch
+embeddings through ``ctx_proj``).
 
 The reference stacks each super-block's parameters on a leading
 ``n_repeats`` axis and scans over it; the port unrolls the super-blocks
 into one :class:`torch.nn.ModuleList` (:func:`layer_specs` gives each
 layer's spec: repeat ``r``, pattern slot ``j`` is layer
 ``r * len(pattern) + j``, then the remainder), and its caches into one
-list.  The xLSTM mixers, cross-attention and encoders raise
-:class:`NotImplementedError` naming the ROADMAP slice that brings them.
+list.  The xLSTM mixers raise :class:`NotImplementedError` naming the
+ROADMAP slice that brings them.
+
+A context reaches the decoder as the reference hands it: ``batch["ctx"]``
+(or ``decode_step``'s ``ctx``) goes through the encoder first when the
+config has one (:func:`encode_ctx`; a decode step re-encodes it, as the
+reference does), then through ``ctx_proj`` once per call when the config
+has a ``ctx_dim``; each cross layer attends over it.  A call without a
+context skips the cross blocks, as the reference's does.  A context in
+another dtype than the model's is cast to it where it enters (the
+reference's einsum would promote the products instead).
 
 Training (``training/train_step.py``) reads the model through
 :func:`train_fwd`: the logits or the final hidden states, the MoE layers'
@@ -25,7 +37,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.configs.base import ArchConfig, EncoderConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -44,19 +56,11 @@ def check_supported(cfg: ArchConfig) -> None:
         if spec.mixer in ("mlstm", "slstm"):
             raise NotImplementedError(
                 f"mixer {spec.mixer!r} is not ported: ROADMAP queue 1, item "
-                f"10 (xLSTM slice)")
+                f"10(c) (xLSTM, slice 17)")
         if spec.mixer not in ("attn", "rglru"):
             raise ValueError(f"unknown mixer {spec.mixer!r}")
         if spec.mlp == "moe" and cfg.moe is None:
             raise ValueError("a MoE layer needs cfg.moe")
-        if spec.cross_attn:
-            raise NotImplementedError(
-                "cross-attention is not ported: ROADMAP queue 1, item 10 "
-                "(encoder and cross-attention slice)")
-    if cfg.encoder is not None or cfg.ctx_dim:
-        raise NotImplementedError(
-            "encoders and context projections are not ported: ROADMAP "
-            "queue 1, item 10 (encoder and cross-attention slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -65,8 +69,9 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class Layer(nn.Module):
-    """Pre-norm mixer (GQA or MLA attention, or RG-LRU) and MLP (dense or
-    MoE) block."""
+    """Pre-norm mixer (GQA or MLA attention, or RG-LRU), cross-attention
+    (``norm_cross`` and ``cross``, a GQA whose K/V read the context) when
+    the spec has one, and MLP (dense or MoE) block."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec,
                  generator: torch.Generator, device):
@@ -80,6 +85,10 @@ class Layer(nn.Module):
             self.attn = attn.init_mla(cfg, generator, device)
         else:
             self.attn = attn.init_gqa(cfg, generator, device)
+        if spec.cross_attn:
+            self.norm_cross = cm.param(torch.zeros(cfg.d_model, dtype=dt,
+                                                   device=device))
+            self.cross = attn.init_gqa(cfg, generator, device)
         if spec.mlp in ("dense", "moe"):
             self.norm_mlp = cm.param(torch.zeros(cfg.d_model, dtype=dt,
                                                  device=device))
@@ -106,9 +115,12 @@ def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
 
 def layer_fwd(p: Layer, cfg: ArchConfig, spec: LayerSpec, h: torch.Tensor,
               *, positions: torch.Tensor, cache: Optional[dict] = None,
-              cache_pos: Optional[int] = None):
+              cache_pos: Optional[int] = None,
+              ctx: Optional[torch.Tensor] = None, causal: bool = True):
     """Returns ``(h, new_cache, aux)``: ``aux`` the MoE's balance term
-    (fp32), ``None`` for a layer without a MoE."""
+    (fp32), ``None`` for a layer without a MoE.  The cross block runs only
+    when the layer has one and ``ctx`` is given; ``causal=False`` makes a
+    full-sequence GQA call bidirectional (the encoder's)."""
     aux = None
     hin = cm.rms_norm(h, p.norm_mix, cfg.norm_eps)
     if spec.mixer == "rglru":
@@ -119,8 +131,11 @@ def layer_fwd(p: Layer, cfg: ArchConfig, spec: LayerSpec, h: torch.Tensor,
     else:
         out, c2 = attn.gqa_fwd(p.attn, cfg, hin, positions,
                                window=spec.window, cache=cache,
-                               cache_pos=cache_pos)
+                               cache_pos=cache_pos, causal=causal)
     h = h + out
+    if spec.cross_attn and ctx is not None:
+        xin = cm.rms_norm(h, p.norm_cross, cfg.norm_eps)
+        h = h + attn.gqa_fwd(p.cross, cfg, xin, positions, ctx=ctx)[0]
     if spec.mlp == "dense":
         h = h + mlp_mod.mlp_fwd(p.mlp, cfg,
                                 cm.rms_norm(h, p.norm_mlp, cfg.norm_eps))
@@ -138,8 +153,10 @@ def layer_fwd(p: Layer, cfg: ArchConfig, spec: LayerSpec, h: torch.Tensor,
 
 class LM(nn.Module):
     """Embedding (over the padded vocabulary), the layers, the final norm,
-    the LM head when the embeddings are not tied, and the MTP head's
-    ``mtp_norm`` and ``mtp_proj`` (d, d) when the config has one."""
+    the LM head when the embeddings are not tied, ``ctx_proj`` (ctx_dim,
+    d) when the config has a ``ctx_dim``, the MTP head's ``mtp_norm`` and
+    ``mtp_proj`` (d, d) when the config has one, and ``encoder`` (an
+    :class:`Encoder`) when it has an encoder."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
         super().__init__()
@@ -155,11 +172,16 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = cm.param(
                 cm.dense_init(g, cfg.d_model, (cfg.padded_vocab,), dt, device))
+        if cfg.ctx_dim:
+            self.ctx_proj = cm.param(
+                cm.dense_init(g, cfg.ctx_dim, (cfg.d_model,), dt, device))
         if cfg.mtp:
             self.mtp_norm = cm.param(torch.zeros(cfg.d_model, dtype=dt,
                                                  device=device))
             self.mtp_proj = cm.param(
                 cm.dense_init(g, cfg.d_model, (cfg.d_model,), dt, device))
+        if cfg.encoder is not None:
+            self.encoder = Encoder(cfg, g, device)
 
     @property
     def device(self) -> torch.device:
@@ -193,27 +215,34 @@ def embed_scale(cfg: ArchConfig) -> torch.Tensor:
 
 
 def _stack(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
-           cache: Optional[dict], cache_pos: Optional[int], remat: bool):
+           cache: Optional[dict], cache_pos: Optional[int], remat: bool,
+           ctx: Optional[torch.Tensor] = None):
     """The embedding and every layer, then the final norm: ``(h,
     new_cache, aux)``, ``aux`` the MoE layers' balance terms summed in
-    layer order (``None`` without a MoE layer)."""
+    layer order (``None`` without a MoE layer).  ``ctx`` (encoded, if the
+    config has an encoder) goes through ``ctx_proj`` here, once."""
     h = model.embed[tokens] * float(embed_scale(cfg))  # exact as a scalar
     b, s = h.shape[:2]
     offset = 0 if cache is None else cache_pos
     positions = (offset + torch.arange(s, device=h.device))[None, :].expand(b, s)
+    if ctx is not None:
+        ctx = ctx.to(h.dtype)
+        if cfg.ctx_dim:
+            ctx = ctx @ model.ctx_proj
 
     aux = None
     new_layers = []
     for i, (p, spec) in enumerate(zip(model.layers, layer_specs(cfg))):
         if remat and cache is None:
-            # the aux term leaves the checkpoint beside h
-            h, a = checkpoint(lambda x, p=p, spec=spec: layer_fwd(
-                p, cfg, spec, x, positions=positions)[0::2], h,
+            # the aux term leaves the checkpoint beside h; ctx goes in as
+            # an input, so that its gradient flows through the recompute
+            h, a = checkpoint(lambda x, c, p=p, spec=spec: layer_fwd(
+                p, cfg, spec, x, positions=positions, ctx=c)[0::2], h, ctx,
                 use_reentrant=False)
         else:
             c_in = cache["layers"][i] if cache is not None else None
             h, c2, a = layer_fwd(p, cfg, spec, h, positions=positions,
-                                 cache=c_in, cache_pos=cache_pos)
+                                 cache=c_in, cache_pos=cache_pos, ctx=ctx)
             new_layers.append(c2)
         if a is not None:
             aux = a if aux is None else aux + a
@@ -230,9 +259,11 @@ def _logits(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
+           ctx: Optional[torch.Tensor] = None,
            cache: Optional[dict] = None, cache_pos: Optional[int] = None,
            remat: bool = False, return_hidden: bool = False):
-    """Full-sequence forward (``cache=None``) or cached decode step.
+    """Full-sequence forward (``cache=None``) or cached decode step, over
+    the context ``ctx`` (already encoded) when given.
     Returns ``(logits over the padded vocabulary, new_cache)``; with
     ``return_hidden``, the final hidden states (after the final norm) in
     place of the logits, for the chunked loss.  With ``remat`` (full
@@ -241,10 +272,78 @@ def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
     over its super-block), which changes no value.  The MTP head is not
     computed here: :func:`train_fwd` gives its logits."""
     h, new_cache, _ = _stack(model, cfg, tokens, cache=cache,
-                             cache_pos=cache_pos, remat=remat)
+                             cache_pos=cache_pos, remat=remat, ctx=ctx)
     if return_hidden:
         return h, new_cache
     return _logits(model, cfg, h), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Encoder (whisper's): a stack of bidirectional self-attention layers over
+# precomputed frame embeddings (the reference's frontend is a stub too)
+# ---------------------------------------------------------------------------
+
+
+def encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder's own config, as the reference's ``_encoder_cfg``
+    builds it: one ``(attn, dense)`` pattern, as many KV heads as heads,
+    ``head_dim = d_model // n_heads``, vocabulary 256, the decoder's
+    ``act`` and ``dtype``; RoPE, the norms' eps, Q/K norm and the softcap
+    at the defaults."""
+    e: EncoderConfig = cfg.encoder
+    return ArchConfig(
+        name=cfg.name + "-enc",
+        n_layers=e.n_layers,
+        d_model=e.d_model,
+        n_heads=e.n_heads,
+        n_kv_heads=e.n_heads,
+        head_dim=e.d_model // e.n_heads,
+        d_ff=e.d_ff,
+        vocab_size=256,
+        pattern=(LayerSpec(mixer="attn", mlp="dense"),),
+        act=cfg.act,
+        dtype=cfg.dtype,
+    )
+
+
+class Encoder(nn.Module):
+    """The encoder's layers (unrolled, as the LM's: the reference stacks
+    them on a leading ``n_layers`` axis) and its final norm."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device):
+        super().__init__()
+        ecfg = encoder_cfg(cfg)
+        self.layers = nn.ModuleList(
+            init_layer(ecfg, ecfg.pattern[0], generator, device)
+            for _ in range(ecfg.n_layers))
+        self.final_norm = cm.param(torch.zeros(
+            ecfg.d_model, dtype=cm.dtype_of(ecfg), device=device))
+
+
+def encoder_fwd(encoder: Encoder, cfg: ArchConfig,
+                frames: torch.Tensor) -> torch.Tensor:
+    """``frames`` (B, n_frames, d_enc), precomputed frame embeddings,
+    through every encoder layer (bidirectional self-attention with RoPE
+    at positions ``arange(n_frames)``) and the final norm."""
+    ecfg = encoder_cfg(cfg)
+    spec = ecfg.pattern[0]
+    h = frames.to(cm.dtype_of(ecfg))
+    b, s = h.shape[:2]
+    positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
+    for p in encoder.layers:
+        h = layer_fwd(p, ecfg, spec, h, positions=positions, causal=False)[0]
+    return cm.rms_norm(h, encoder.final_norm, ecfg.norm_eps)
+
+
+def encode_ctx(model: LM, cfg: ArchConfig,
+               ctx: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The context the decoder reads: ``ctx`` through the encoder when the
+    config has one (the reference's ``train_step.py::_encode_ctx`` and the
+    encoder call of its ``model_fwd`` and ``decode_step``), else as
+    given."""
+    if cfg.encoder is not None and ctx is not None:
+        return encoder_fwd(model.encoder, cfg, ctx)
+    return ctx
 
 
 # ---------------------------------------------------------------------------
@@ -253,8 +352,10 @@ def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def model_fwd(model: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Prefill forward of ``batch["tokens"]``: the logits."""
-    return lm_fwd(model, cfg, batch["tokens"])[0]
+    """Prefill forward of ``batch["tokens"]`` over ``batch["ctx"]`` (if
+    any): the logits."""
+    ctx = encode_ctx(model, cfg, batch.get("ctx"))
+    return lm_fwd(model, cfg, batch["tokens"], ctx=ctx)[0]
 
 
 def mtp_logits(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -267,14 +368,16 @@ def mtp_logits(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 def train_fwd(model: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
               return_hidden: bool = False):
-    """The training forward of ``batch["tokens"]``, as the reference's
+    """The training forward of ``batch["tokens"]`` over ``batch["ctx"]``
+    (encoded by :func:`encode_ctx`), as the reference's
     ``model_fwd``/``lm_fwd`` hand it to the loss: ``(logits, or the final
     hidden states with return_hidden, aux, extras)``.  ``aux`` is the MoE
     layers' balance term, an fp32 zero without a MoE layer; ``extras``
     holds ``"mtp_logits"`` when the config has an MTP head, on the logits
     path only (the reference's chunked loss leaves MTP out)."""
+    ctx = encode_ctx(model, cfg, batch.get("ctx"))
     h, _, aux = _stack(model, cfg, batch["tokens"], cache=None,
-                       cache_pos=None, remat=remat)
+                       cache_pos=None, remat=remat, ctx=ctx)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_hidden:
@@ -289,7 +392,11 @@ def init_model_cache(cfg: ArchConfig, batch: int, max_len: int, *,
 
 
 def decode_step(model: LM, cfg: ArchConfig, cache: dict, token: torch.Tensor,
-                cache_pos: int):
-    """One-token decode.  token: (B, 1) int.  Returns ``(logits,
-    new_cache)``; the cache is updated in place."""
-    return lm_fwd(model, cfg, token, cache=cache, cache_pos=cache_pos)
+                cache_pos: int, *, ctx: Optional[torch.Tensor] = None):
+    """One-token decode over the context ``ctx`` (if any; re-encoded at
+    every step when the config has an encoder, as the reference does).
+    token: (B, 1) int.  Returns ``(logits, new_cache)``; the cache is
+    updated in place."""
+    ctx = encode_ctx(model, cfg, ctx)
+    return lm_fwd(model, cfg, token, ctx=ctx, cache=cache,
+                  cache_pos=cache_pos)

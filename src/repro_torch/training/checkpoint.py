@@ -11,9 +11,11 @@ package; :func:`save` writes the bytes the reference's ``save`` writes.
 
 The LM trainer's checkpoint is the reference's ``(params, opt_state)``
 pair: keys ``0/lm/blocks/0/attn/wq``, ``1/count``, ``1/m/lm/...``, with
-each pattern slot's layers stacked on a leading ``n_repeats`` axis
-(:func:`lm_state_to_jax`, :func:`lm_state_from_jax`), so a file written by
-either package restores in the other.  Writes are atomic; with ``step``
+each pattern slot's layers stacked on a leading ``n_repeats`` axis, and
+``0/encoder/...``, ``1/m/encoder/...`` for a model with an encoder, its
+layers stacked the same way (:func:`lm_state_to_jax`,
+:func:`lm_state_from_jax`), so a file written by either package restores
+in the other.  Writes are atomic; with ``step``
 they are versioned (``step_%08d.ckpt``) under a ``latest`` symlink.
 """
 from __future__ import annotations
@@ -348,8 +350,10 @@ def _is_leaf(val) -> bool:
     return not isinstance(val, dict) or set(val) == {"q", "s"}
 
 
-#: the leaves of an LM tree outside its layers
-TOP_LEVEL = ("embed", "final_norm", "lm_head", "mtp_norm", "mtp_proj")
+#: the leaves of an LM tree outside its layers (an encoder tree has the
+#: final norm alone)
+TOP_LEVEL = ("ctx_proj", "embed", "final_norm", "lm_head", "mtp_norm",
+             "mtp_proj")
 
 
 def lm_tree_from_jax(lm: dict, cfg, *, unstack: bool = True
@@ -389,10 +393,11 @@ def lm_tree_to_jax(named: Mapping[str, object], cfg) -> dict:
     """The inverse of :func:`lm_tree_from_jax`: the reference's
     ``params["lm"]`` tree (``embed``, ``blocks`` — one dict per pattern
     slot, each leaf the slot's layers stacked on a leading ``n_repeats``
-    axis — ``final_norm``, ``lm_head`` when untied, ``mtp_norm`` and
-    ``mtp_proj`` with an MTP head, ``rem`` when the config has a
-    remainder) of ``named`` (port parameter name → tensor or ``{"q",
-    "s"}`` pair)."""
+    axis — ``final_norm``, ``lm_head`` when untied, ``ctx_proj`` with a
+    context projection, ``mtp_norm`` and ``mtp_proj`` with an MTP head,
+    ``rem`` when the config has a remainder) of ``named`` (port parameter
+    name → tensor or ``{"q", "s"}`` pair).  Names under ``encoder.`` are
+    not the LM's: :func:`model_tree_to_jax` stacks them."""
     n_pat = len(cfg.pattern)
     n_body = cfg.n_repeats * n_pat
     lm: dict = {k: named[k] for k in TOP_LEVEL if k in named}
@@ -427,22 +432,60 @@ def lm_tree_to_jax(named: Mapping[str, object], cfg) -> dict:
     return lm
 
 
+def _encoder_cfg(cfg):
+    from repro_torch.models.transformer import encoder_cfg
+
+    return encoder_cfg(cfg)
+
+
+def model_tree_from_jax(params: dict, cfg, *, unstack: bool = True
+                        ) -> Dict[str, object]:
+    """``{port parameter name: leaf}`` for the reference's whole
+    parameter tree ``params`` (``{"lm", "encoder"}``, or a moment tree of
+    the same shape): :func:`lm_tree_from_jax` of ``params["lm"]``, and,
+    for a config with an encoder, of ``params["encoder"]`` (its ``blocks``
+    stacked on the encoder's ``n_layers`` axis, its ``final_norm``) under
+    ``encoder.``: leaf ``blocks[0][...][r]`` is ``encoder.layers.{r}``."""
+    out = lm_tree_from_jax(params["lm"], cfg, unstack=unstack)
+    if cfg.encoder is not None:
+        enc = lm_tree_from_jax(params["encoder"], _encoder_cfg(cfg),
+                               unstack=unstack)
+        out.update({f"encoder.{k}": v for k, v in enc.items()})
+    return out
+
+
+def model_tree_to_jax(named: Mapping[str, object], cfg) -> dict:
+    """The inverse of :func:`model_tree_from_jax`: the reference's
+    ``{"lm", "encoder"}`` tree (``"encoder"`` only for a config with an
+    encoder) of ``named``."""
+    tree = {"lm": lm_tree_to_jax(named, cfg)}
+    if cfg.encoder is not None:
+        head = "encoder."
+        tree["encoder"] = lm_tree_to_jax(
+            {n[len(head):]: v for n, v in named.items() if n.startswith(head)},
+            _encoder_cfg(cfg))
+    return tree
+
+
 def lm_leaf_ranks(named: Mapping[str, torch.Tensor], cfg) -> Dict[str, int]:
     """Each port parameter's name and the rank of its leaf in the
-    reference's tree as :func:`lm_tree_to_jax` stacks it: a pattern
-    layer's leaf carries the leading ``n_repeats`` axis, a remainder
-    layer's and the top-level ones do not.  AdamW decays a leaf of rank 2
-    or more (``training/optimizer.py``)."""
+    reference's tree as :func:`model_tree_to_jax` stacks it: a pattern
+    layer's leaf carries the leading ``n_repeats`` axis, and an encoder
+    layer's its ``n_layers`` axis; a remainder layer's and the top-level
+    ones do not.  AdamW decays a leaf of rank 2 or more
+    (``training/optimizer.py``), so it decays an encoder layer's norm
+    vectors, as the reference's does."""
     meta = {n: torch.empty(p.shape, device="meta") for n, p in named.items()}
-    leaves = lm_tree_from_jax(lm_tree_to_jax(meta, cfg), cfg, unstack=False)
+    leaves = model_tree_from_jax(model_tree_to_jax(meta, cfg), cfg,
+                                 unstack=False)
     return {n: leaves[n].dim() for n in named}
 
 
 def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
-    """State dict of the port's LM (``models/transformer.py::LM``) for the
-    reference's parameter tree ``params_np`` (numpy leaves, as
-    ``jax.tree.map(np.asarray, params)`` gives), unstacked by
-    :func:`lm_tree_from_jax`.  Weights keep the einsum layouts (``wq`` (d,
+    """State dict of the port's LM (``models/transformer.py::LM``, its
+    ``encoder`` included) for the reference's parameter tree ``params_np``
+    (numpy leaves, as ``jax.tree.map(np.asarray, params)`` gives),
+    unstacked by :func:`model_tree_from_jax`.  Weights keep the einsum layouts (``wq`` (d,
     H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d),
     ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d); an RG-LRU block's
     ``rglru`` leaves ``w_x``, ``w_g``, ``w_a``, ``w_i``, ``w_out``,
@@ -454,22 +497,22 @@ def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
     parameter's dtype, so ``lam`` and ``router`` stay fp32 in a bf16
     model."""
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
-            for k, v in lm_tree_from_jax(params_np["lm"], cfg).items()}
+            for k, v in model_tree_from_jax(params_np, cfg).items()}
 
 
 def lm_state_to_jax(model, opt_state: dict, cfg) -> Dict[str, torch.Tensor]:
     """The flat checkpoint of the LM trainer's ``(params, opt_state)``
     pair as the reference's ``launch/train.py`` saves it: ``0/lm/...``
-    the parameters, ``1/count``, ``1/m/lm/...`` and ``1/v/lm/...`` the
-    AdamW state (``.../q`` and ``.../s`` for int8 moments), blocks
-    stacked, in the reference's flatten order; tensors detached, on their
-    devices."""
+    (and ``0/encoder/...``) the parameters, ``1/count``, ``1/m/lm/...``
+    and ``1/v/lm/...`` (and ``encoder``) the AdamW state (``.../q`` and
+    ``.../s`` for int8 moments), blocks stacked, in the reference's
+    flatten order; tensors detached, on their devices."""
     params = {n: p.detach() for n, p in model.named_parameters()}
     return flatten((
-        {"lm": lm_tree_to_jax(params, cfg)},
+        model_tree_to_jax(params, cfg),
         {"count": opt_state["count"],
-         "m": {"lm": lm_tree_to_jax(opt_state["m"], cfg)},
-         "v": {"lm": lm_tree_to_jax(opt_state["v"], cfg)}}))
+         "m": model_tree_to_jax(opt_state["m"], cfg),
+         "v": model_tree_to_jax(opt_state["v"], cfg)}))
 
 
 def lm_state_from_jax(flat: Mapping[str, torch.Tensor], model, cfg) -> dict:
@@ -479,7 +522,7 @@ def lm_state_from_jax(flat: Mapping[str, torch.Tensor], model, cfg) -> dict:
     model's device."""
     params, opt = unflatten(flat)
     dev = model.device
-    named = lm_tree_from_jax(params["lm"], cfg)
+    named = model_tree_from_jax(params, cfg)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(named[name])
@@ -487,7 +530,7 @@ def lm_state_from_jax(flat: Mapping[str, torch.Tensor], model, cfg) -> dict:
     def moments(tree):
         return {n: ({k: t.to(dev) for k, t in v.items()}
                     if isinstance(v, dict) else v.to(dev))
-                for n, v in lm_tree_from_jax(tree["lm"], cfg).items()}
+                for n, v in model_tree_from_jax(tree, cfg).items()}
 
     return {"m": moments(opt["m"]), "v": moments(opt["v"]),
             "count": opt["count"].to(dev)}

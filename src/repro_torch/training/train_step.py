@@ -13,9 +13,14 @@ term and, for a config with an MTP head, ``MTP_WEIGHT`` times its cross
 entropy against the labels shifted left once more (wrapping around, as
 ``jnp.roll``); the chunked loss leaves MTP out, as the reference's does.
 
-Context inputs and encoders are refused, as
-``models/transformer.py::check_supported`` refuses them (ROADMAP queue 1,
-item 10(c)); the factories take no mesh (item 11(c)).
+A batch may carry a context, ``batch["ctx"]``: precomputed frame
+embeddings for a config with an encoder (``whisper-medium``), which the
+forward encodes first on both loss paths (the reference's
+``_encode_ctx``, here ``models/transformer.py::encode_ctx``), or patch
+embeddings for a config with a ``ctx_dim`` (``llama-3.2-vision-11b``).
+The cross layers, the encoder and ``ctx_proj`` get their gradients
+through the flash kernel's ``autograd.Function`` like every attention
+layer.  The factories take no mesh (ROADMAP queue 1, item 11(c)).
 """
 from __future__ import annotations
 
@@ -73,10 +78,6 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
     tr.check_supported(cfg)
 
     def loss_fn(model: tr.LM, batch: dict):
-        if batch.get("ctx") is not None:
-            raise NotImplementedError(
-                "context inputs are not ported: ROADMAP queue 1, item 10(c) "
-                "(encoder and cross-attention slice)")
         if ce_chunk:
             h, aux, extras = tr.train_fwd(model, cfg, batch, remat=remat,
                                           return_hidden=True)
@@ -151,7 +152,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """``prefill_step(model, batch) -> logits`` (no gradient)."""
+    """``prefill_step(model, batch) -> logits`` (no gradient), over
+    ``batch["ctx"]`` when the batch has one."""
     tr.check_supported(cfg)
 
     @torch.no_grad()
@@ -162,18 +164,15 @@ def make_prefill_step(cfg: ArchConfig):
 
 
 def make_serve_step(cfg: ArchConfig):
-    """``serve_step(model, cache, token, cache_pos) -> (logits,
-    new_cache)``: one decode step (no gradient), the cache updated in
-    place."""
+    """``serve_step(model, cache, token, cache_pos, ctx=None) -> (logits,
+    new_cache)``: one decode step (no gradient) over the context ``ctx``
+    (re-encoded at every step for a config with an encoder, as the
+    reference does), the cache updated in place."""
     tr.check_supported(cfg)
 
     @torch.no_grad()
     def serve_step(model: tr.LM, cache: dict, token: torch.Tensor,
                    cache_pos: int, ctx: Optional[torch.Tensor] = None):
-        if ctx is not None:
-            raise NotImplementedError(
-                "context inputs are not ported: ROADMAP queue 1, item 10(c) "
-                "(encoder and cross-attention slice)")
-        return tr.decode_step(model, cfg, cache, token, cache_pos)
+        return tr.decode_step(model, cfg, cache, token, cache_pos, ctx=ctx)
 
     return serve_step

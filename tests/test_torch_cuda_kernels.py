@@ -279,6 +279,11 @@ FLASH_CASES = [
     (2, 32, 8, 70, 70, 128, True, 24, None, None),
     (2, 16, 1, 70, 70, 256, True, 24, None, None),
     (2, 8, 2, 100, 100, 64, False, None, None, 77),
+    # cross-attention (non-causal, S != T): head dim 64 at a group of 1
+    # and 128 at a group of 4, S 3 and 16 over T 37 and 100
+    *[(b, h, kv, s, t, d, False, None, None, None)
+      for (b, h, kv, d) in ((2, 2, 2, 64), (1, 8, 2, 128))
+      for s in (3, 16) for t in (37, 100)],
 ]
 
 

@@ -84,6 +84,26 @@ def test_plain_matches_oracle_and_pallas(b, h, kv, s, t, d, causal, window,
                                    rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("s,t", [(3, 37), (3, 100), (16, 37), (16, 100)])
+@pytest.mark.parametrize("b,h,kv,d", [(2, 2, 2, 64), (1, 8, 2, 128)],
+                         ids=["d64-g1", "d128-g4"])
+def test_cross_shapes_match_oracle_and_pallas(b, h, kv, d, s, t, dtype):
+    """Non-causal attention with S != T, as the cross layers call it (every
+    context row, no mask): whisper's head dim 64 with a group of 1 and the
+    vision model's 128 with a group of 4, over contexts that are not a
+    multiple of the Pallas blocks."""
+    (jq, jk, jv), (q, k, v) = _qkv(b, h, kv, s, t, d, dtype, seed=s * t)
+    out = flash_attention(q, k, v, causal=False)
+    assert out.dtype == q.dtype and out.shape == (b, h, s, d)
+    oracle = attention_ref(jq, jk, jv, causal=False)
+    pallas = jflash(jq, jk, jv, causal=False, block_q=16, block_k=16,
+                    interpret=True)
+    for ref in (oracle, pallas):
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
 @pytest.mark.parametrize("cache_pos", [0, 13, 31])
 def test_decode_mapping_matches_sdpa_and_pallas(cache_pos):
     """One-token decode at ``cache_pos`` over a cache of T = 32: the
@@ -222,6 +242,16 @@ LM_SHAPES = [
     # chip_smoke.py phase 22's decode over a cache of 32 and its scoring
     ("llama4 decode", 8, 40, 8, 1, 32, 128, "decode"),
     ("llama4 scoring", 8, 40, 8, 32, 32, 128, "scoring"),
+    # chip_smoke.py phase 23 (4 requests, prompts of 16): whisper-medium's
+    # encoder over 1,500 frames and its cross calls (G = 1, so the prompt's
+    # 16 rows fit the decode tile), llama-3.2-vision-11b's over 1,600
+    # patches (G = 4: the prompt is 64 rows, scoring)
+    ("whisper encoder", 4, 16, 16, 1500, 1500, 64, "scoring"),
+    ("whisper cross, prompt", 4, 16, 16, 16, 1500, 64, "decode"),
+    ("whisper cross, decode", 4, 16, 16, 1, 1500, 64, "decode"),
+    ("whisper cross, prompt of 70", 2, 16, 16, 70, 1500, 64, "scoring"),
+    ("vision cross, prompt", 4, 32, 8, 16, 1600, 128, "scoring"),
+    ("vision cross, decode", 4, 32, 8, 1, 1600, 128, "decode"),
 ]
 
 

@@ -215,9 +215,10 @@ def test_weight_carry_over_unstacks_the_blocks(models):
 
 
 def test_unported_paths_raise(models):
-    """xLSTM, cross-attention, a sharded call and a chunked prefill raise;
-    a MoE layer and MLA, which raised before the MoE/MLA slice, build and
-    run (a forward and a decode step, finite)."""
+    """xLSTM, a sharded call and a chunked prefill raise; a MoE layer and
+    MLA, which raised before the MoE/MLA slice, build and run (a forward
+    and a decode step, finite), and so does a cross call, which raised
+    before the encoder and cross-attention slice."""
     _, model = models
     with pytest.raises(NotImplementedError, match="xLSTM"):
         tr.init_model(CFG.replace(pattern=(LayerSpec(mixer="mlstm"),)),
@@ -245,8 +246,9 @@ def test_unported_paths_raise(models):
     with pytest.raises(NotImplementedError, match="longer than the window"):
         attn.gqa_fwd(p, CFG, x[:, :1], pos[:, :1], window=4, cache=cache,
                      cache_pos=0)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        attn.gqa_fwd(p, CFG, x, pos, ctx=x)
+    ctx = torch.randn(1, 5, 64, generator=torch.Generator().manual_seed(2))
+    out, _ = attn.gqa_fwd(p, CFG, x, pos, ctx=ctx)
+    assert out.shape == (1, 2, 64) and torch.isfinite(out).all()
     with pytest.raises(NotImplementedError, match="sharded"):
         attn.gqa_fwd(p, CFG, x, pos, mesh=object())
 

@@ -49,7 +49,7 @@ from repro.training import fault as jfault
 from repro.training import optimizer as jopt
 from repro.training import train_step as jts
 from repro_torch import configs
-from repro_torch.configs.base import EncoderConfig
+from repro_torch.configs.base import LayerSpec
 from repro_torch.kernels.flash_attention.ops import (FlashAttention,
                                                      flash_attention)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -473,30 +473,54 @@ def test_chunked_ce_train_step_matches_the_jitted_reference(name):
 
 
 def test_train_step_refuses_what_the_port_lacks():
+    """An xLSTM config is refused (slice 17); a batch with a context,
+    refused before the encoder and cross-attention slice, trains: reduced
+    ``whisper-medium`` (frames through the encoder) gives a finite loss and
+    a gradient to every parameter."""
     cfg = configs.make_reduced(configs.get_config("qwen3-4b"))
-    with pytest.raises(NotImplementedError, match="encoder"):
-        ts.make_loss_fn(cfg.replace(encoder=EncoderConfig()))
-    model = tr.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
-    _, batch = _batch(cfg)
-    with pytest.raises(NotImplementedError, match="10\\(c\\)"):
-        ts.make_loss_fn(cfg)(model, dict(batch, ctx=torch.zeros(4, 2, 8)))
+    with pytest.raises(NotImplementedError, match="xLSTM"):
+        ts.make_loss_fn(cfg.replace(pattern=(LayerSpec(mixer="mlstm"),)))
+    wcfg = configs.make_reduced(configs.get_config("whisper-medium"))
+    model = tr.init_model(wcfg, torch.Generator().manual_seed(0), "cpu")
+    _, batch = _batch(wcfg)
+    ctx = torch.randn(4, wcfg.encoder.n_frames, wcfg.encoder.d_model,
+                      generator=torch.Generator().manual_seed(1)) * 0.1
+    step = ts.make_train_step(wcfg, opt.OptConfig(**OPT), remat=False)
+    state = opt.adamw_init(dict(model.named_parameters()),
+                           opt.OptConfig(**OPT))
+    before = model.encoder.layers[0].attn.wq.detach().clone()
+    _, state, m = step(model, state, dict(batch, ctx=ctx))
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    assert not torch.equal(before, model.encoder.layers[0].attn.wq.detach())
 
 
 def test_prefill_and_serve_steps_equal_the_model():
+    """``granite-8b``, and reduced ``llama-3.2-vision-11b`` with a context
+    (its patches through ``ctx_proj`` into the cross layers), which the
+    serve step refused before the encoder and cross-attention slice: the
+    prefill step is the model's forward, each serve step its logits at
+    that position."""
     _, cfg, _, model = _models("granite-8b")
     _, batch = _batch(cfg, rows=2, seq=5)
-    model.requires_grad_(True)  # as after training: the steps take none
-    logits = ts.make_prefill_step(cfg)(model, batch)
-    assert logits.grad_fn is None
-    assert torch.equal(logits, tr.model_fwd(model, cfg, batch))
-    serve = ts.make_serve_step(cfg)
-    cache = tr.init_model_cache(cfg, 2, 5, device="cpu")
-    for t in range(5):
-        out, cache = serve(model, cache, batch["tokens"][:, t:t + 1], t)
-        assert out.grad_fn is None
-        assert _rel(out[:, 0].numpy(), logits[:, t].numpy()) <= 1e-5
-    with pytest.raises(NotImplementedError, match="context"):
-        serve(model, cache, batch["tokens"][:, :1], 0, ctx=torch.zeros(1))
+    vcfg = configs.make_reduced(configs.get_config("llama-3.2-vision-11b"))
+    vision = tr.init_model(vcfg, torch.Generator().manual_seed(3), "cpu")
+    _, vbatch = _batch(vcfg, rows=2, seq=5)
+    vbatch["ctx"] = torch.randn(2, vcfg.ctx_len, vcfg.ctx_dim,
+                                generator=torch.Generator().manual_seed(4))
+    for cfg, model, batch in ((cfg, model, batch), (vcfg, vision, vbatch)):
+        model.requires_grad_(True)  # as after training: the steps take none
+        logits = ts.make_prefill_step(cfg)(model, batch)
+        assert logits.grad_fn is None
+        assert torch.equal(logits, tr.model_fwd(model, cfg, batch))
+        serve = ts.make_serve_step(cfg)
+        cache = tr.init_model_cache(cfg, 2, 5, device="cpu")
+        for t in range(5):
+            out, cache = serve(model, cache, batch["tokens"][:, t:t + 1], t,
+                               ctx=batch.get("ctx"))
+            assert out.grad_fn is None
+            assert _rel(out[:, 0].numpy(), logits[:, t].numpy()) <= 1e-5
+    plain = tr.model_fwd(vision, vcfg, {"tokens": vbatch["tokens"]})
+    assert _rel(plain.detach().numpy(), logits.numpy()) > 1e-3
 
 
 # ---------------------------------------------------------------------------
