@@ -12,9 +12,9 @@ end, diffusion training and the Table III baselines, LM training on
 seven configurations, the MoE and MLA models (``deepseek-v3-671b``,
 ``llama4-maverick-400b-a17b``) at full width cut in depth, the encoder
 and cross-attention models (``whisper-medium`` at full width and depth,
-``llama-3.2-vision-11b`` at full width cut in depth), the LM prefix
-relay at ``qwen3-4b`` width and the same relay at ``recurrentgemma-9b``
-width —
+``llama-3.2-vision-11b`` at full width cut in depth), ``xlstm-1.3b`` at
+full width and depth served and relayed, the LM prefix relay at
+``qwen3-4b`` width and the same relay at ``recurrentgemma-9b`` width —
 and holds every CUDA kernel against its plain PyTorch version.  Phases,
 each failing the run (non-zero exit, no result line) on any mismatch:
 
@@ -96,7 +96,8 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     its times at (8, 128, 4096) and (1, 4096, 4096) beside the plain
     version's, the bound and the launch floor (run here, before the LM
     paths' long runs, as the profiler needs);
-8. the LM main path: ``qwen3-4b`` (36 layers, bf16) as the large model and
+8. the LM main path: ``qwen3-4b`` (cut to 18 of its 36 layers for the
+   command's time, bf16) as the large model and
    its 9-layer cut as the small one, random weights from seeded
    generators; 8 prompts of 64 tokens decode 64 new tokens large-only,
    relayed at s = 32, and small-only, then ``sequence_logprob`` of each
@@ -124,13 +125,13 @@ each failing the run (non-zero exit, no result line) on any mismatch:
 10. LM times: ms per new token of each model and ms per relay request,
     and the busy share of one relay run; then the ``qwen3-4b`` models are
     freed;
-12. the RecurrentGemma main path: ``recurrentgemma-9b`` (38 layers, bf16)
-    as the large model and its 11-layer cut as the small one, random
+12. the RecurrentGemma main path: ``recurrentgemma-9b`` (cut to 20 of its
+    38 layers, six super-blocks and the remainder, bf16) as the large model and its 11-layer cut as the small one, random
     weights from seeded generators, the same prompts, large-only, relayed
     at s = 32 and small-only, then ``sequence_logprob`` of each under the
     large model; exact launch counts: the RG-LRU scan never in decode and
-    once per recurrent layer (26) per scored batch, flash attention once
-    per attention layer (12 and 3) per decode step (decode kernel) and 12
+    once per recurrent layer (14) per scored batch, flash attention once
+    per attention layer (6 and 3) per decode step (decode kernel) and 6
     times per scored batch (scoring kernel);
 13. RecurrentGemma card against CPU on the same weights, at full width
     with 5 layers (one super-block and the remainder, the depth
@@ -343,9 +344,28 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     equal bit for bit; ms per prefill and per decode step beside the
     step's bound (weight and context bytes over the HBM rate plus the
     context's operations over the bf16 rate), the busy share, the peak
-    memory.
+    memory;
+24. xLSTM (``models/recurrent.py``'s mLSTM and sLSTM, plain torch: no
+    hand-written kernel on this path, so every launch count reads 0 over
+    the phase): (a) ``make_reduced(xlstm-1.3b)`` in fp32 card against CPU
+    on the same weights: the forward in the parallel and the chunkwise
+    form (S = 32, chunk 8), 16 teacher-forced decode steps (their logits,
+    and every layer's state after each step) within ``LM_RTOL``, the
+    greedy tokens equal up to a tie; (b) one period at full width (7
+    mLSTM layers and the sLSTM layer, bf16) card against CPU: every block
+    output, state and logit row of a 16-step decode and of the forward
+    within ``XLSTM_BF16_RTOL``, and on the card the chunkwise form against
+    the parallel one at S = 256, chunk 64, in fp32 within the reference's
+    2e-2 (bf16 read); (c) ``xlstm-1.3b`` at full width and depth (48
+    layers, bf16): ``greedy_decode`` of 8 prompts of 16 tokens and 16 new
+    ones, each decode step within ``XLSTM_LOGITS_RTOL`` of the full
+    forward, ``relay_decode`` at s = 8 to the one-period model and the
+    small model alone, ``sequence_logprob`` of each arm, the handoff's
+    bytes, ms per decode step against the step's byte bound (the weights
+    and the state read and written once), the device time and busy share
+    of a step, the peak memory.
 
-The phases run in the order 1-7, 11, 15-23, 8-10, 12-14.  Every
+The phases run in the order 1-7, 11, 15-24, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
@@ -386,8 +406,11 @@ MAIN_ROWS, WIRE_LEN = 4 * 8, 64  # 8 requests x 4 latent channels, 8x8
 RAW_RTOL, COMPRESSED_RTOL = 1e-4, 1e-3
 # LM paths: 8 prompts of 64 tokens, 64 new tokens, relays at s
 LM_BATCH, LM_PROMPT, LM_TOTAL, LM_SPLITS = 8, 64, 64, (32,)
-LM_SMALL_LAYERS = 9
-RG_NAME, RG_SMALL_LAYERS = "recurrentgemma-9b", 11
+# the relays' large models cut in depth for the command's time (from 36
+# and 38 layers before PR 36: the command read 622-998 s, and phase 24
+# adds about 70 s against the 1,200 s limit); the small ones as before
+LM_LARGE_LAYERS, LM_SMALL_LAYERS = 18, 9
+RG_NAME, RG_LARGE_LAYERS, RG_SMALL_LAYERS = "recurrentgemma-9b", 20, 11
 # phase 13: one super-block (R, R, A) and the remainder (R, R); the
 # window cut to 16, for the check only, so that the ring wraps in a run of
 # 16 prompt tokens and 16 new ones
@@ -603,6 +626,39 @@ ENC_LOGITS_RTOL, ENC_CTX_FACTOR = 3e-2, 2.0
 # logits by 1.19e-2 and 3.53e-2 only, within the bf16 noise of the check
 # above (H100 80GB HBM3, 700 W)
 ENC_CTX_SCALE = {"whisper-medium": 0.1, "llama-3.2-vision-11b": 4.0}
+# phase 24, xLSTM (no hand-written kernel on its path): (a) make_reduced
+# in fp32 card against CPU, 2 x XLSTM_CHECK_SEQ tokens (the chunkwise form
+# at XLSTM_CHECK_CHUNK), XLSTM_CHECK_STEPS decode steps, a greedy decode
+# of XLSTM_CHECK_PROMPT + XLSTM_CHECK_NEW; (b) one period
+# (XLSTM_SMALL_LAYERS layers) at full width in bf16 over the same greedy
+# length, and the two mLSTM forms at XLSTM_FORMS_SEQ, chunk
+# XLSTM_FORMS_CHUNK, within the reference's own tolerance for them
+# (tests/test_models.py); (c) XLSTM_ROWS prompts of XLSTM_PROMPT tokens,
+# XLSTM_NEW new ones, the relay at XLSTM_SPLIT to the one-period model
+XLSTM_NAME, XLSTM_SMALL_LAYERS = "xlstm-1.3b", 8
+XLSTM_CHECK_SEQ, XLSTM_CHECK_CHUNK, XLSTM_CHECK_STEPS = 32, 8, 16
+XLSTM_CHECK_PROMPT, XLSTM_CHECK_NEW = 8, 8
+XLSTM_FORMS_SEQ, XLSTM_FORMS_CHUNK, XLSTM_FORMS_TOL = 256, 64, 2e-2
+XLSTM_ROWS, XLSTM_PROMPT, XLSTM_NEW, XLSTM_SPLIT = 8, 16, 16, 8
+XLSTM_TIMED_STEPS = 8
+# (a), fp32 card against CPU, norm-wise: 3.5x the largest reading (1.43e-5,
+# the mLSTM's C; the forwards 9.72e-6, the decode's logits 8.99e-6; H100
+# 80GB HBM3, 700 W).  LM_RTOL's 1e-5 is under the model's own noise: the
+# mLSTM's per-head group norm enlarges a near-cancelled head's rounding
+# error (tests/test_torch_xlstm.py::test_gradients_are_ill_conditioned)
+XLSTM_RTOL = 5e-5
+# (b), bf16 card against CPU, norm-wise: 1.8x the largest reading (an
+# mLSTM block's output at a decode step, 5.60e-2; the states 3.64e-2, the
+# logits 2.91e-2; H100 80GB HBM3, 700 W)
+XLSTM_BF16_RTOL = 0.1
+# (c), bf16, each decode step against the full forward at 48 layers,
+# norm-wise: the logits at 1.9x the largest reading (0.161, growing from
+# 0.082 at the first step), the first period's block outputs at 2.1x theirs
+# (5.65e-2; H100 80GB HBM3, 700 W).  Deeper blocks read up to 0.482 (layer
+# 45): the two forms round different bf16 intermediates, and each layer's
+# per-head group norm enlarges what reaches it; dropping the state at
+# every step moves the blocks by 1.25-1.43
+XLSTM_LOGITS_RTOL, XLSTM_BLOCK_RTOL, XLSTM_DROP_FACTOR = 0.3, 0.12, 2.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -4312,6 +4368,425 @@ def ctx_phase(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 24: xLSTM (mLSTM and sLSTM, plain torch: no hand-written kernel)
+# ---------------------------------------------------------------------------
+
+
+class MixerRecorder:
+    """While active, every mLSTM and sLSTM block's output, an fp32 copy on
+    ``where``, in call order: ``seen``, a list of (kind, output)."""
+
+    def __init__(self, where):
+        self.where, self.seen = where, []
+
+    def __enter__(self):
+        from repro_torch.models import recurrent as rec
+
+        self.rec = rec
+        self.originals = {"mlstm": rec.mlstm_block_fwd,
+                          "slstm": rec.slstm_block_fwd}
+        for kind, fn in self.originals.items():
+            setattr(rec, f"{kind}_block_fwd", self._recording(kind, fn))
+        return self
+
+    def _recording(self, kind, fn):
+        def fwd(*args, **kw):
+            y, c = fn(*args, **kw)
+            self.seen.append((kind, y.to(self.where, torch.float32,
+                                         copy=True)))
+            return y, c
+        return fwd
+
+    def __exit__(self, *exc):
+        for kind, fn in self.originals.items():
+            setattr(self.rec, f"{kind}_block_fwd", fn)
+
+
+def xlstm_caches_rel(card: dict, cpu: dict, worst: dict) -> None:
+    """Every layer's state, card against CPU, into ``worst`` (the largest
+    norm-wise error by mixer and state: ``mlstm_C``, ``slstm_n``, ...)."""
+    for a, b in zip(card["layers"], cpu["layers"]):
+        kind = "mlstm" if "C" in a else "slstm"
+        for key, x in a.items():
+            k = f"{kind}_{key}"
+            worst[k] = max(worst.get(k, 0.0), norm_rel(x.cpu(), b[key]))
+
+
+def xlstm_card_vs_cpu(dev) -> dict:
+    """Phase 24 (a): ``make_reduced(xlstm-1.3b)`` in fp32, the same weights
+    (drawn on the card, copied) on the card and the CPU: the full forward
+    in the parallel form and in the chunkwise form (S = XLSTM_CHECK_SEQ,
+    chunk XLSTM_CHECK_CHUNK), ``XLSTM_CHECK_STEPS`` teacher-forced decode
+    steps (their logits as one tensor, and every layer's state after each
+    step: C, n, m, conv; h, c, n, m), within ``XLSTM_RTOL``; the greedy
+    tokens of ``greedy_decode`` equal up to a tie (the margin test of
+    :func:`tokens_upto_tie` on each device's teacher-forced logits)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.lm_relay import greedy_decode
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = configs.make_reduced(configs.get_config(XLSTM_NAME))
+    card = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(110),
+                         dev)
+    host = copy.deepcopy(card).to(cpu)
+    toks = lm_train_batch(cfg, 2, XLSTM_CHECK_SEQ, 110, cpu)["tokens"].long()
+    res = {}
+    with torch.no_grad():
+        for form, chunk in (("parallel", None), ("chunkwise",
+                                                 XLSTM_CHECK_CHUNK)):
+            a = tr.model_fwd(card, cfg, {"tokens": toks.to(dev)},
+                             mlstm_chunk=chunk)
+            b = tr.model_fwd(host, cfg, {"tokens": toks}, mlstm_chunk=chunk)
+            res[f"forward_{form}_rel"] = norm_rel(a.cpu(), b)
+        n = XLSTM_CHECK_STEPS
+        caches = {"card": tr.init_model_cache(cfg, 2, n, device=dev),
+                  "cpu": tr.init_model_cache(cfg, 2, n, device=cpu)}
+        steps, states = {"card": [], "cpu": []}, {}
+        for t in range(n):
+            for key, model in (("card", card), ("cpu", host)):
+                where = dev if key == "card" else cpu
+                lg, caches[key] = tr.decode_step(
+                    model, cfg, caches[key], toks[:, t:t + 1].to(where), t)
+                steps[key].append(lg[:, 0].cpu())
+            xlstm_caches_rel(caches["card"], caches["cpu"], states)
+    res["decode_rel"] = norm_rel(torch.stack(steps["card"], 1),
+                                 torch.stack(steps["cpu"], 1))
+    res["states"] = states
+    check(max([v for k, v in res.items() if k.endswith("_rel")]
+              + list(states.values())) <= XLSTM_RTOL,
+          f"xLSTM card vs CPU (reduced, fp32): {res}")
+    p, new = XLSTM_CHECK_PROMPT, XLSTM_CHECK_NEW
+    prompt = toks[:, :p]
+    seqs = {"card": greedy_decode(card, cfg, prompt.to(dev), new,
+                                  device=dev).cpu(),
+            "cpu": greedy_decode(host, cfg, prompt, new, device=cpu)}
+    logits = {"card": teacher_forced(card, cfg, seqs["card"].to(dev)).cpu(),
+              "cpu": teacher_forced(host, cfg, seqs["card"])}
+    upto, tie = tokens_upto_tie(seqs, logits, p, new)
+    res.update(tokens_equal_upto=upto, tie_at=tie,
+               case_s=time.perf_counter() - t0)
+    print(f"xLSTM card vs CPU (make_reduced, fp32, 2 x {XLSTM_CHECK_SEQ} "
+          f"tokens, chunk {XLSTM_CHECK_CHUNK}, {n} decode steps, greedy "
+          f"{p} + {new}): {json.dumps(res)}")
+    return res
+
+
+def xlstm_period_bf16(dev) -> dict:
+    """Phase 24 (b): one period of ``xlstm-1.3b`` at full width (7 mLSTM
+    layers and the sLSTM layer, bf16), the same weights on the card and
+    the CPU.  The card greedy-decodes XLSTM_CHECK_NEW tokens after
+    XLSTM_CHECK_PROMPT; both devices then feed that sequence one token at
+    a time through ``decode_step`` and once through ``model_fwd``, in
+    lockstep: every mLSTM and sLSTM block's output at every step and in
+    the forward, every layer's state after every step and the logits,
+    within ``XLSTM_BF16_RTOL`` norm-wise (the mixer outputs on their own:
+    the tied logits of a random model are dominated by the token's own
+    embedding).  On the card, the chunkwise form against the parallel one
+    at S = XLSTM_FORMS_SEQ, chunk XLSTM_FORMS_CHUNK, in bf16 and on the
+    same weights in fp32, within ``XLSTM_FORMS_TOL`` (the reference's own
+    tolerance for the two forms)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.lm_relay import greedy_decode
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = configs.get_config(XLSTM_NAME).replace(n_layers=XLSTM_SMALL_LAYERS)
+    card = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(111),
+                         dev)
+    host = copy.deepcopy(card).to(cpu)
+    p, new = XLSTM_CHECK_PROMPT, XLSTM_CHECK_NEW
+    prompt = lm_train_batch(cfg, 2, p, 111, dev)["tokens"].long()
+    seq = greedy_decode(card, cfg, prompt, new, device=dev)
+    n = p + new
+    recorder = MixerRecorder(cpu)
+
+    def both(fn):
+        """``fn(key, model, where)`` on the card and the CPU: the two
+        results and the mixer outputs each recorded."""
+        out = {}
+        for key, model, where in (("card", card, dev), ("cpu", host, cpu)):
+            recorder.seen.clear()
+            res = fn(key, model, where)
+            out[key] = (res, list(recorder.seen))
+        return out
+
+    worst, states = {}, {}
+
+    def note(prefix, out):
+        (a, sa), (b, sb) = out["card"], out["cpu"]
+        check([k for k, _ in sa] == [k for k, _ in sb], "mixer calls")
+        for (kind, x), (_, y) in zip(sa, sb):
+            k = f"{prefix}_{kind}"
+            worst[k] = max(worst.get(k, 0.0), norm_rel(x, y))
+        k = f"{prefix}_logits"
+        worst[k] = max(worst.get(k, 0.0),
+                       norm_rel(a[..., :cfg.vocab_size].float().cpu(),
+                                b[..., :cfg.vocab_size].float()))
+
+    with recorder, torch.no_grad():
+        caches = {"card": tr.init_model_cache(cfg, 2, n, device=dev),
+                  "cpu": tr.init_model_cache(cfg, 2, n, device=cpu)}
+        for t in range(n):
+            def step(key, model, where, t=t):
+                lg, caches[key] = tr.decode_step(
+                    model, cfg, caches[key], seq[:, t:t + 1].to(where), t)
+                return lg
+            note("decode", both(step))
+            xlstm_caches_rel(caches["card"], caches["cpu"], states)
+        note("forward", both(lambda key, model, where: tr.model_fwd(
+            model, cfg, {"tokens": seq.to(where)})))
+    del host, caches
+    res = {"decode_and_forward": worst, "states": states}
+    # the two forms of the mLSTM on the card
+    toks = lm_train_batch(cfg, 2, XLSTM_FORMS_SEQ, 112, dev)["tokens"].long()
+    forms = {}
+    with torch.no_grad():
+        for dtype in ("bfloat16", "float32"):
+            model = card if dtype == "bfloat16" else card.float()
+            c = cfg.replace(dtype=dtype)
+            par = tr.model_fwd(model, c, {"tokens": toks})
+            chunked = tr.model_fwd(model, c, {"tokens": toks},
+                                   mlstm_chunk=XLSTM_FORMS_CHUNK)
+            forms[dtype] = norm_rel(chunked[..., :cfg.vocab_size].float(),
+                                    par[..., :cfg.vocab_size].float())
+            del par, chunked
+    res["chunkwise_vs_parallel_rel"] = forms
+    res["case_s"] = time.perf_counter() - t0
+    print(f"xLSTM one period (full width, {cfg.n_layers} layers, bf16, 2 x "
+          f"{p} + {new} tokens) card vs CPU, largest norm-wise relative "
+          f"error per step and layer; forms at S = {XLSTM_FORMS_SEQ}, chunk "
+          f"{XLSTM_FORMS_CHUNK}: {json.dumps(res)}; card: {card_line()}")
+    del card
+    torch.cuda.empty_cache()
+    check(max(list(worst.values()) + list(states.values())) <= XLSTM_BF16_RTOL,
+          f"xLSTM one period bf16 card vs CPU over {XLSTM_BF16_RTOL}")
+    check(max(forms.values()) <= XLSTM_FORMS_TOL,
+          f"xLSTM chunkwise vs parallel over {XLSTM_FORMS_TOL}: {forms}")
+    return res
+
+
+def xlstm_step_bound(model, cache: dict) -> dict:
+    """A decode step's least time: every weight read once (the tied
+    embedding whole, as the head) and the state read and written once,
+    over ``HBM_BYTES_PER_S``."""
+    w = sum(p.numel() * p.element_size() for p in model.parameters())
+    s = sum(x.numel() * x.element_size() for c in cache["layers"]
+            for x in c.values())
+    return {"bound_ms": (w + 2 * s) / HBM_BYTES_PER_S * 1e3,
+            "weight_gb": w / 1e9, "state_gb": s / 1e9}
+
+
+def xlstm_served(dev) -> dict:
+    """Phase 24 (c): ``xlstm-1.3b`` at full width and depth (48 layers,
+    bf16, seeded random weights) serving XLSTM_ROWS prompts of
+    XLSTM_PROMPT tokens: ``greedy_decode`` of XLSTM_NEW tokens, each
+    decode step's logits (teacher-forced on its tokens, which they
+    choose again bit for bit) against the full forward's within
+    ``XLSTM_LOGITS_RTOL``, and each block's output at each step against
+    the forward's at that position (the tied logits of a random model
+    follow the token's own embedding; a block's output follows its
+    state): the first period's blocks within ``XLSTM_BLOCK_RTOL``, which
+    the same steps on a fresh cache each (the state dropped) must miss by
+    more than ``XLSTM_DROP_FACTOR`` times in every one of those layers;
+    the deeper blocks read; ``relay_decode`` at s = XLSTM_SPLIT with the
+    one-period model as the small one (its large segment equal to the
+    large-only run's prefix, the handoff's bytes by the reference's
+    formula) and the small model alone; ``sequence_logprob`` of each arm
+    under the large model; ms per large decode step (the greedy run's)
+    against :func:`xlstm_step_bound`, a step's device time and busy share
+    (:func:`child_xlstm_step_profile`), the peak memory."""
+    from repro_torch import configs
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.lm_relay import (greedy_decode, relay_decode,
+                                              sequence_logprob)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = configs.get_config(XLSTM_NAME)
+    cfg_s = cfg.replace(n_layers=XLSTM_SMALL_LAYERS)
+    large = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(113),
+                          dev)
+    small = tr.init_model(cfg_s, torch.Generator(device=dev).manual_seed(114),
+                          dev)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    params_b = cm.count_params(large) / 1e9
+    prompt = lm_train_batch(cfg, XLSTM_ROWS, XLSTM_PROMPT, 113,
+                            dev)["tokens"].long()
+    p, new, s = XLSTM_PROMPT, XLSTM_NEW, XLSTM_SPLIT
+    greedy_decode(large, cfg, prompt, 2, device=dev)  # warm
+    seq, wall = host_timed(lambda: greedy_decode(large, cfg, prompt, new,
+                                                 device=dev))
+    check(seq.shape == (XLSTM_ROWS, p + new)
+          and torch.equal(seq[:, :p], prompt), "xLSTM greedy tokens")
+    with MixerRecorder(dev) as steps:
+        forced = teacher_forced(large, cfg, seq)
+    with MixerRecorder(dev) as whole, torch.no_grad():
+        full = tr.model_fwd(large, cfg, {"tokens": seq})[..., :cfg.vocab_size]
+    check(torch.equal(forced[:, p - 1:-1].argmax(-1), seq[:, p:]),
+          "xLSTM teacher-forced decode chose other tokens than greedy")
+    check(bool(torch.isfinite(forced).all() and torch.isfinite(full).all()),
+          "xLSTM logits not finite")
+    step_rel = [norm_rel(forced[:, j], full[:, j]) for j in range(p + new)]
+    # each block's output at each step against the forward's at that
+    # position (step j's calls are steps.seen[j * L: (j + 1) * L])
+    n_layers = len(whole.seen)
+    check(len(steps.seen) == n_layers * (p + new), "xLSTM mixer calls")
+    block_rel = [max(norm_rel(steps.seen[j * n_layers + i][1][:, 0],
+                              whole.seen[i][1][:, j])
+                     for j in range(p + new)) for i in range(n_layers)]
+    del steps
+    # the control: each step on a fresh cache (the state dropped)
+    with MixerRecorder(dev) as dropped, torch.no_grad():
+        for j in range(p + new):
+            tr.decode_step(large, cfg, tr.init_model_cache(
+                cfg, XLSTM_ROWS, 1, device=dev), seq[:, j:j + 1], j)
+    dropped_rel = [max(norm_rel(dropped.seen[j * n_layers + i][1][:, 0],
+                                whole.seen[i][1][:, j])
+                       for j in range(p + new)) for i in range(n_layers)]
+    first = XLSTM_SMALL_LAYERS  # the first period's blocks are held
+    del forced, full, dropped, whole
+    relay, info = relay_decode(large, cfg, small, cfg_s, prompt, s, new,
+                               device=dev)
+    check(torch.equal(relay[:, :p + s], seq[:, :p + s])
+          and info["transfer_bytes"] == XLSTM_ROWS * (p + s) * 4,
+          f"xLSTM relay: large segment or handoff bytes {info}")
+    alone = greedy_decode(small, cfg_s, prompt, new, device=dev)
+    logp = {arm: sequence_logprob(large, cfg, x, device=dev)
+            for arm, x in (("large", seq), (f"relay_s{s}", relay),
+                           ("small", alone))}
+    check(all(np.isfinite(v) for v in logp.values()), f"xLSTM logp {logp}")
+    profile = child_xlstm_step_profile()
+    bound = xlstm_step_bound(large, tr.init_model_cache(
+        cfg, XLSTM_ROWS, 1, device="meta"))
+    step_ms = wall / (p + new)
+    out = {"params_b": params_b, "drawn_s": drawn,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ms_per_step": step_ms, "step_bound": bound,
+           "share_of_bound": bound["bound_ms"] / step_ms,
+           "share_of_bound_device": bound["bound_ms"] / profile["device_ms"],
+           "step_profile": profile,
+           "decode_vs_forward_rel_max": max(step_rel),
+           "decode_vs_forward_rel_by_step": step_rel,
+           "block_decode_vs_forward_rel_by_layer": block_rel,
+           "logits_rtol": XLSTM_LOGITS_RTOL,
+           "block_rtol": XLSTM_BLOCK_RTOL,
+           "block_state_dropped_vs_forward_rel_by_layer": dropped_rel,
+           "logprob": logp,
+           "relay_info": info, "tokens_large": seq[0].tolist(),
+           "tokens_relay": relay[0].tolist(),
+           "case_s": time.perf_counter() - t0}
+    print(f"xlstm-1.3b (bf16, full width and depth, {params_b:.3f} B; "
+          f"{XLSTM_ROWS} prompts of {p} + {new} tokens, relay at s = {s} "
+          f"to {cfg_s.n_layers} layers): {json.dumps(out)}; card: "
+          f"{card_line()}")
+    check(max(step_rel) <= XLSTM_LOGITS_RTOL
+          and max(block_rel[:first]) <= XLSTM_BLOCK_RTOL,
+          f"xLSTM decode against the forward: logits {max(step_rel)} over "
+          f"{XLSTM_LOGITS_RTOL} or the first period's blocks "
+          f"{max(block_rel[:first])} over {XLSTM_BLOCK_RTOL}")
+    check(min(dropped_rel[:first]) > XLSTM_DROP_FACTOR * XLSTM_BLOCK_RTOL,
+          f"xLSTM: dropping the state moves a block of the first period by "
+          f"{min(dropped_rel[:first])} only, under {XLSTM_DROP_FACTOR} x "
+          f"XLSTM_BLOCK_RTOL")
+    del large, small
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_step_profile() -> dict:
+    """One decode step of phase 24 (c)'s ``xlstm-1.3b`` (its seeded
+    weights, bf16, XLSTM_ROWS rows, on a fresh cache) on the card: its
+    host time over XLSTM_TIMED_STEPS steps, and its device time, kernels
+    and busy share from :func:`profiled` with the exact-count check (a
+    two-step session holds twice a one-step session's kernel records;
+    the pair is measured again, up to three times, when it does not, and
+    the process's first session is left out: in a fresh process a
+    two-step session read 8,010 kernels, not twice what the process's
+    first one-step session read).  Run in a child process
+    (:func:`child_xlstm_step_profile`): late in this script CUPTI
+    recorded 7,974 of a two-step session's 8,010 kernels in every attempt
+    (H100 80GB HBM3, 700 W), while a fresh process records them all."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda")
+    cfg = configs.get_config(XLSTM_NAME)
+    model = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(113),
+                          dev)
+    cache = tr.init_model_cache(cfg, XLSTM_ROWS, 1, device=dev)
+    tok = lm_train_batch(cfg, XLSTM_ROWS, 1, 113, dev)["tokens"].long()
+
+    def steps(k):
+        def run():
+            with torch.no_grad():
+                for _ in range(k):
+                    tr.decode_step(model, cfg, cache, tok, 0)
+        return run
+    steps(2)()
+    _, wall = host_timed(steps(XLSTM_TIMED_STEPS))
+    step_ms = wall / XLSTM_TIMED_STEPS
+    profiled(steps(1))  # a process's first session: its count may differ
+    for attempt in range(3):
+        _, one = profiled(steps(1))
+        records = sum(e.count for e in one if e.self_device_time_total > 0)
+        try:
+            us, averages = profiled(steps(2), calls=2, records=records)
+            break
+        except RuntimeError:
+            print(f"xLSTM step profile: one step recorded {records} kernels "
+                  f"(pair {attempt + 1} of 3)", file=sys.stderr)
+            if attempt == 2:
+                raise
+    top = sorted(averages, key=lambda e: -e.self_device_time_total)[:8]
+    return {"step_ms": step_ms, "device_ms": us / 2e3,
+            "busy_share": us / 2e3 / step_ms, "kernels_per_step": records,
+            "top_kernels_ms_per_step": {
+                e.key[:80]: e.self_device_time_total / 2e3 for e in top}}
+
+
+def child_xlstm_step_profile() -> dict:
+    """:func:`xlstm_step_profile` in a fresh Python process on the card."""
+    code = ("import json, sys; sys.path.insert(0, 'src'); import chip_smoke; "
+            "print(json.dumps(chip_smoke.xlstm_step_profile()))")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, f"xLSTM step profile: {run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def xlstm_phase(dev) -> dict:
+    """Phase 24: xLSTM, (a) card against CPU on the reduced configuration
+    in fp32, (b) one period at full width in bf16 card against CPU and the
+    two mLSTM forms, (c) ``xlstm-1.3b`` at full width and depth served and
+    relayed.  No hand-written kernel runs on this path: every launch
+    count reads 0 over the phase (:func:`count_launches`)."""
+    from repro_torch.device import keep_fp32
+
+    t0 = time.perf_counter()
+    keep_fp32(dev)  # (a): fp32 products
+    total = dict.fromkeys(KERNELS, 0)
+
+    def run():
+        return {"card_vs_cpu": xlstm_card_vs_cpu(dev),
+                "period_bf16": xlstm_period_bf16(dev),
+                "served": xlstm_served(dev)}
+    out, _ = count_launches("xLSTM phase", run, dict.fromkeys(KERNELS, 0),
+                            total)
+    print(f"xLSTM phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+    return out
+
+
 def mixer_layers(cfg, mixer: str) -> int:
     """The number of layers of ``cfg`` whose mixer is ``mixer``."""
     from repro_torch.models import transformer as tr
@@ -4319,9 +4794,11 @@ def mixer_layers(cfg, mixer: str) -> int:
     return sum(spec.mixer == mixer for spec in tr.layer_specs(cfg))
 
 
-def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
-    """Phases 8 and 12: the large model ``name`` and its ``small_layers``
-    cut; returns the models, their configs, the prompts and the path's
+def lm_main_path(dev, name: str, large_layers: int, small_layers: int,
+                 seeds=(1, 2)):
+    """Phases 8 and 12: the large model ``name`` cut to ``large_layers``
+    and its ``small_layers`` cut; returns the models, their configs, the
+    prompts and the path's
     launches.  Flash attention launches once per attention layer per
     decode step and per scored batch; the RG-LRU scan never in decode and
     once per recurrent layer per scored batch."""
@@ -4334,7 +4811,7 @@ def lm_main_path(dev, name: str, small_layers: int, seeds=(1, 2)):
                                               sequence_logprob)
     from repro_torch.training.data import DataConfig, TokenPipeline
 
-    cfg_l = configs.get_config(name)
+    cfg_l = configs.get_config(name).replace(n_layers=large_layers)
     cfg_s = cfg_l.replace(n_layers=small_layers)
     t0 = time.perf_counter()
     large = tr.init_model(cfg_l, torch.Generator(device=dev)
@@ -4840,6 +5317,7 @@ def main() -> int:
     from repro_torch.serving.arms import build_action_space
     from repro_torch.serving.executor import Executor
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}")
@@ -5204,11 +5682,14 @@ def main() -> int:
     # ---- 23. encoders and cross-attention --------------------------------
     ctx_total = ctx_phase(dev)
 
+    # ---- 24. xLSTM ---------------------------------------------------------
+    xlstm_phase(dev)
+
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs
 
     large, small, cfg_l, cfg_s, prompt, qwen_launches = lm_main_path(
-        dev, "qwen3-4b", LM_SMALL_LAYERS)
+        dev, "qwen3-4b", LM_LARGE_LAYERS, LM_SMALL_LAYERS)
     qwen_launches["flash_attention"] += traced_relay(
         large, small, cfg_l, cfg_s, prompt)
     lm_card_vs_cpu(dev, prompt, cfg_l.replace(n_layers=2))
@@ -5220,7 +5701,7 @@ def main() -> int:
 
     # ---- 12-14. the recurrentgemma-9b LM path ----------------------------
     large, small, cfg_l, cfg_s, prompt, rg_launches = lm_main_path(
-        dev, RG_NAME, RG_SMALL_LAYERS, seeds=(11, 12))
+        dev, RG_NAME, RG_LARGE_LAYERS, RG_SMALL_LAYERS, seeds=(11, 12))
     rg_check = rg_check_config(configs.get_config(RG_NAME))
     lm_card_vs_cpu(dev, prompt, rg_check, seeds=(13, 14), s=8, total=16)
     lm_bf16_card_vs_cpu(dev, prompt, rg_check, RG_BF16_RTOL, seed=15,
@@ -5245,6 +5726,8 @@ def main() -> int:
         k: v for k, v in step_rows["path"].items()
         if k not in ("shape", "dtype", "guidance")}
 
+    print(f"phases 1-24: {time.perf_counter() - t_start:.1f} s after the "
+          f"imports")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name], "max_abs_err": max_err[name],

@@ -1,6 +1,5 @@
 """Architecture registry of the port: ``get_config(name)`` /
-``list_archs()``.  Holds the configurations whose layers the port runs;
-the others of ``repro/configs`` come with their slices (ROADMAP)."""
+``list_archs()``.  Holds every configuration of ``repro/configs``."""
 from __future__ import annotations
 
 import importlib
@@ -21,6 +20,7 @@ _MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "whisper-medium": "whisper_medium",
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 

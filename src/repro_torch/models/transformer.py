@@ -1,8 +1,9 @@
 """LM transformer (port of ``repro/models/transformer.py``) for layers of
-GQA or MLA attention (global or sliding-window) or the Griffin RG-LRU
-block, with a dense, a mixture-of-experts or no MLP, and optionally a
-cross-attention block over a context: ``qwen3-4b`` and the other dense
-configurations, the hybrid ``recurrentgemma-9b``, the MoE models
+GQA or MLA attention (global or sliding-window), the Griffin RG-LRU block
+or an xLSTM cell (mLSTM or sLSTM), with a dense, a mixture-of-experts or
+no MLP, and optionally a cross-attention block over a context:
+``qwen3-4b`` and the other dense configurations, the hybrid
+``recurrentgemma-9b``, the recurrent ``xlstm-1.3b``, the MoE models
 ``deepseek-v3-671b`` (MLA, MTP head) and ``llama4-maverick-400b-a17b``,
 the encoder-decoder ``whisper-medium`` (:class:`Encoder` over precomputed
 frame embeddings) and ``llama-3.2-vision-11b`` (precomputed patch
@@ -13,8 +14,9 @@ The reference stacks each super-block's parameters on a leading
 into one :class:`torch.nn.ModuleList` (:func:`layer_specs` gives each
 layer's spec: repeat ``r``, pattern slot ``j`` is layer
 ``r * len(pattern) + j``, then the remainder), and its caches into one
-list.  The xLSTM mixers raise :class:`NotImplementedError` naming the
-ROADMAP slice that brings them.
+list.  ``mlstm_chunk`` reaches every mLSTM layer of a full-sequence
+forward (its chunkwise form, ``models/recurrent.py``), as the
+reference threads it.
 
 A context reaches the decoder as the reference hands it: ``batch["ctx"]``
 (or ``decode_step``'s ``ctx``) goes through the encoder first when the
@@ -50,14 +52,14 @@ def layer_specs(cfg: ArchConfig) -> Tuple[LayerSpec, ...]:
     return tuple(cfg.pattern) * cfg.n_repeats + tuple(cfg.remainder)
 
 
+#: the mixers a layer may hold
+MIXERS = ("attn", "rglru", "mlstm", "slstm")
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise :class:`NotImplementedError` for what the port cannot run yet."""
+    """Raise :class:`ValueError` for a layer the port cannot build."""
     for spec in layer_specs(cfg):
-        if spec.mixer in ("mlstm", "slstm"):
-            raise NotImplementedError(
-                f"mixer {spec.mixer!r} is not ported: ROADMAP queue 1, item "
-                f"10(c) (xLSTM, slice 17)")
-        if spec.mixer not in ("attn", "rglru"):
+        if spec.mixer not in MIXERS:
             raise ValueError(f"unknown mixer {spec.mixer!r}")
         if spec.mlp == "moe" and cfg.moe is None:
             raise ValueError("a MoE layer needs cfg.moe")
@@ -69,9 +71,10 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class Layer(nn.Module):
-    """Pre-norm mixer (GQA or MLA attention, or RG-LRU), cross-attention
-    (``norm_cross`` and ``cross``, a GQA whose K/V read the context) when
-    the spec has one, and MLP (dense or MoE) block."""
+    """Pre-norm mixer (GQA or MLA attention, RG-LRU, mLSTM or sLSTM),
+    cross-attention (``norm_cross`` and ``cross``, a GQA whose K/V read
+    the context) when the spec has one, and MLP (dense or MoE) block; no
+    ``norm_mlp`` for ``mlp="none"``."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec,
                  generator: torch.Generator, device):
@@ -81,6 +84,10 @@ class Layer(nn.Module):
                                              device=device))
         if spec.mixer == "rglru":
             self.rglru = rec.init_rglru(cfg, generator, device)
+        elif spec.mixer == "mlstm":
+            self.mlstm = rec.init_mlstm(cfg, generator, device)
+        elif spec.mixer == "slstm":
+            self.slstm = rec.init_slstm(cfg, generator, device)
         elif cfg.mla is not None:
             self.attn = attn.init_mla(cfg, generator, device)
         else:
@@ -107,6 +114,10 @@ def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                      max_len: int, *, device) -> dict:
     if spec.mixer == "rglru":
         return rec.init_rglru_cache(cfg, batch, device=device)
+    if spec.mixer == "mlstm":
+        return rec.init_mlstm_cache(cfg, batch, device=device)
+    if spec.mixer == "slstm":
+        return rec.init_slstm_cache(cfg, batch, device=device)
     if cfg.mla is not None:
         return attn.init_mla_cache(cfg, batch, max_len, device=device)
     return attn.init_gqa_cache(cfg, batch, max_len, window=spec.window,
@@ -116,15 +127,22 @@ def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
 def layer_fwd(p: Layer, cfg: ArchConfig, spec: LayerSpec, h: torch.Tensor,
               *, positions: torch.Tensor, cache: Optional[dict] = None,
               cache_pos: Optional[int] = None,
-              ctx: Optional[torch.Tensor] = None, causal: bool = True):
+              ctx: Optional[torch.Tensor] = None, causal: bool = True,
+              mlstm_chunk: Optional[int] = None):
     """Returns ``(h, new_cache, aux)``: ``aux`` the MoE's balance term
     (fp32), ``None`` for a layer without a MoE.  The cross block runs only
     when the layer has one and ``ctx`` is given; ``causal=False`` makes a
-    full-sequence GQA call bidirectional (the encoder's)."""
+    full-sequence GQA call bidirectional (the encoder's); ``mlstm_chunk``
+    is an mLSTM layer's chunk."""
     aux = None
     hin = cm.rms_norm(h, p.norm_mix, cfg.norm_eps)
     if spec.mixer == "rglru":
         out, c2 = rec.rglru_block_fwd(p.rglru, cfg, hin, cache=cache)
+    elif spec.mixer == "mlstm":
+        out, c2 = rec.mlstm_block_fwd(p.mlstm, cfg, hin, cache=cache,
+                                      chunk=mlstm_chunk)
+    elif spec.mixer == "slstm":
+        out, c2 = rec.slstm_block_fwd(p.slstm, cfg, hin, cache=cache)
     elif cfg.mla is not None:
         out, c2 = attn.mla_fwd(p.attn, cfg, hin, positions, cache=cache,
                                cache_pos=cache_pos)
@@ -202,10 +220,21 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     """One cache per layer, under ``"layers"``: {"k", "v"} for GQA
     attention (a ring of at most ``window`` slots for a sliding-window
     layer), {"c_kv", "k_rope"} for MLA, {"h", "conv"} for an RG-LRU
-    block."""
-    return {"layers": [init_layer_cache(cfg, spec, batch, max_len,
-                                        device=device)
-                       for spec in layer_specs(cfg)]}
+    block, {"C", "n", "m", "conv"} for an mLSTM, {"h", "c", "n", "m"} for
+    an sLSTM.  The layers of the repeated pattern start from zeros, as the
+    reference's ``init_lm_cache`` stacks them (``jnp.zeros`` of each
+    leaf's shape): an xLSTM layer's ``m`` and ``n`` start at 0 there, not
+    at ``init_mlstm_cache``'s and ``init_slstm_cache``'s -1e30 and 1e-6,
+    which the remainder's layers keep.  Every other cache is zeros
+    either way."""
+    n_body = cfg.n_repeats * len(cfg.pattern)
+    layers = []
+    for i, spec in enumerate(layer_specs(cfg)):
+        cache = init_layer_cache(cfg, spec, batch, max_len, device=device)
+        if i < n_body:
+            cache = {k: torch.zeros_like(v) for k, v in cache.items()}
+        layers.append(cache)
+    return {"layers": layers}
 
 
 def embed_scale(cfg: ArchConfig) -> torch.Tensor:
@@ -216,7 +245,8 @@ def embed_scale(cfg: ArchConfig) -> torch.Tensor:
 
 def _stack(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
            cache: Optional[dict], cache_pos: Optional[int], remat: bool,
-           ctx: Optional[torch.Tensor] = None):
+           ctx: Optional[torch.Tensor] = None,
+           mlstm_chunk: Optional[int] = None):
     """The embedding and every layer, then the final norm: ``(h,
     new_cache, aux)``, ``aux`` the MoE layers' balance terms summed in
     layer order (``None`` without a MoE layer).  ``ctx`` (encoded, if the
@@ -237,12 +267,13 @@ def _stack(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
             # the aux term leaves the checkpoint beside h; ctx goes in as
             # an input, so that its gradient flows through the recompute
             h, a = checkpoint(lambda x, c, p=p, spec=spec: layer_fwd(
-                p, cfg, spec, x, positions=positions, ctx=c)[0::2], h, ctx,
-                use_reentrant=False)
+                p, cfg, spec, x, positions=positions, ctx=c,
+                mlstm_chunk=mlstm_chunk)[0::2], h, ctx, use_reentrant=False)
         else:
             c_in = cache["layers"][i] if cache is not None else None
             h, c2, a = layer_fwd(p, cfg, spec, h, positions=positions,
-                                 cache=c_in, cache_pos=cache_pos, ctx=ctx)
+                                 cache=c_in, cache_pos=cache_pos, ctx=ctx,
+                                 mlstm_chunk=mlstm_chunk)
             new_layers.append(c2)
         if a is not None:
             aux = a if aux is None else aux + a
@@ -261,9 +292,11 @@ def _logits(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
            ctx: Optional[torch.Tensor] = None,
            cache: Optional[dict] = None, cache_pos: Optional[int] = None,
-           remat: bool = False, return_hidden: bool = False):
+           remat: bool = False, mlstm_chunk: Optional[int] = None,
+           return_hidden: bool = False):
     """Full-sequence forward (``cache=None``) or cached decode step, over
-    the context ``ctx`` (already encoded) when given.
+    the context ``ctx`` (already encoded) when given; ``mlstm_chunk`` for
+    the mLSTM layers of a full sequence.
     Returns ``(logits over the padded vocabulary, new_cache)``; with
     ``return_hidden``, the final hidden states (after the final norm) in
     place of the logits, for the chunked loss.  With ``remat`` (full
@@ -272,7 +305,8 @@ def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
     over its super-block), which changes no value.  The MTP head is not
     computed here: :func:`train_fwd` gives its logits."""
     h, new_cache, _ = _stack(model, cfg, tokens, cache=cache,
-                             cache_pos=cache_pos, remat=remat, ctx=ctx)
+                             cache_pos=cache_pos, remat=remat, ctx=ctx,
+                             mlstm_chunk=mlstm_chunk)
     if return_hidden:
         return h, new_cache
     return _logits(model, cfg, h), new_cache
@@ -351,11 +385,13 @@ def encode_ctx(model: LM, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 
-def model_fwd(model: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def model_fwd(model: LM, cfg: ArchConfig, batch: dict, *,
+              mlstm_chunk: Optional[int] = None) -> torch.Tensor:
     """Prefill forward of ``batch["tokens"]`` over ``batch["ctx"]`` (if
     any): the logits."""
     ctx = encode_ctx(model, cfg, batch.get("ctx"))
-    return lm_fwd(model, cfg, batch["tokens"], ctx=ctx)[0]
+    return lm_fwd(model, cfg, batch["tokens"], ctx=ctx,
+                  mlstm_chunk=mlstm_chunk)[0]
 
 
 def mtp_logits(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -367,7 +403,7 @@ def mtp_logits(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def train_fwd(model: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
-              return_hidden: bool = False):
+              mlstm_chunk: Optional[int] = None, return_hidden: bool = False):
     """The training forward of ``batch["tokens"]`` over ``batch["ctx"]``
     (encoded by :func:`encode_ctx`), as the reference's
     ``model_fwd``/``lm_fwd`` hand it to the loss: ``(logits, or the final
@@ -377,7 +413,8 @@ def train_fwd(model: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
     path only (the reference's chunked loss leaves MTP out)."""
     ctx = encode_ctx(model, cfg, batch.get("ctx"))
     h, _, aux = _stack(model, cfg, batch["tokens"], cache=None,
-                       cache_pos=None, remat=remat, ctx=ctx)
+                       cache_pos=None, remat=remat, ctx=ctx,
+                       mlstm_chunk=mlstm_chunk)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_hidden:

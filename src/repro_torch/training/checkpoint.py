@@ -489,13 +489,18 @@ def lm_params_from_jax(params_np: dict, cfg) -> Dict[str, torch.Tensor]:
     H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d),
     ``w_gate``/``w_up`` (d, f), ``w_down`` (f, d); an RG-LRU block's
     ``rglru`` leaves ``w_x``, ``w_g``, ``w_a``, ``w_i``, ``w_out``,
-    ``conv_w``, ``conv_b``, ``b_a``, ``b_i``, ``lam`` by name; a MoE's
+    ``conv_w``, ``conv_b``, ``b_a``, ``b_i``, ``lam`` by name; an mLSTM's
+    ``mlstm`` leaves ``w_up``, ``conv_w``, ``conv_b``, ``wq_h``/``wk_h``/
+    ``wv_h`` (NH, DH, DH), ``w_if``, ``b_if``, ``gn_scale``, ``w_down``
+    and an sLSTM's ``slstm`` leaves ``w_gates``, ``r_gates`` (NH, 4, DH,
+    DH), ``b_gates``, ``gn_scale``, ``w_out``, by name; a MoE's
     ``router`` (d, E), ``we_gate``/``we_up`` (E, d, f), ``we_down`` (E, f,
     d) and ``shared`` MLP; MLA's ``w_dq``, ``w_uq`` (q_rank, H, qk),
     ``w_dkv``, ``w_uk``/``w_uv`` (kv_rank, H, .), ``wo`` (H, v, d) and its
     two norms), in fp32; ``load_state_dict`` casts them to each
-    parameter's dtype, so ``lam`` and ``router`` stay fp32 in a bf16
-    model."""
+    parameter's dtype, so ``lam``, ``router`` and the xLSTM's gate
+    weights and biases (``w_if``, ``b_if``, ``w_gates``, ``r_gates``,
+    ``b_gates``) stay fp32 in a bf16 model."""
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
             for k, v in model_tree_from_jax(params_np, cfg).items()}
 

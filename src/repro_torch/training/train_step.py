@@ -20,7 +20,9 @@ forward encodes first on both loss paths (the reference's
 embeddings for a config with a ``ctx_dim`` (``llama-3.2-vision-11b``).
 The cross layers, the encoder and ``ctx_proj`` get their gradients
 through the flash kernel's ``autograd.Function`` like every attention
-layer.  The factories take no mesh (ROADMAP queue 1, item 11(c)).
+layer.  ``mlstm_chunk`` runs an xLSTM model's mLSTM layers in their
+chunkwise form (``models/recurrent.py``), as the reference's factories
+take it.  The factories take no mesh (ROADMAP queue 1, item 11(c)).
 """
 from __future__ import annotations
 
@@ -70,6 +72,7 @@ def chunked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
 
 
 def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
+                 mlstm_chunk: Optional[int] = None,
                  ce_chunk: Optional[int] = None):
     """``loss_fn(model, batch) -> (loss, {"ce", "aux"})``: CE over
     ``batch["labels"]`` (chunked when ``ce_chunk``) plus ``AUX_WEIGHT``
@@ -80,6 +83,7 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
     def loss_fn(model: tr.LM, batch: dict):
         if ce_chunk:
             h, aux, extras = tr.train_fwd(model, cfg, batch, remat=remat,
+                                          mlstm_chunk=mlstm_chunk,
                                           return_hidden=True)
             w = model.embed if cfg.tie_embeddings else model.lm_head
             ce = chunked_ce(h, w, batch["labels"],
@@ -87,7 +91,8 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
                             softcap=cfg.logit_softcap, chunk=ce_chunk)
         else:
             logits, aux, extras = tr.train_fwd(model, cfg, batch,
-                                               remat=remat)
+                                               remat=remat,
+                                               mlstm_chunk=mlstm_chunk)
             ce = cross_entropy(logits, batch["labels"])
         loss = ce + AUX_WEIGHT * aux
         if "mtp_logits" in extras:
@@ -101,8 +106,8 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
-                    remat: bool = True, ce_chunk: Optional[int] = None,
-                    accum_steps: int = 1):
+                    remat: bool = True, mlstm_chunk: Optional[int] = None,
+                    ce_chunk: Optional[int] = None, accum_steps: int = 1):
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``: the loss and its gradients (over ``accum_steps``
     micro-batches, the batch's rows split in order, gradients summed in
@@ -110,7 +115,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
     place.  ``metrics`` holds ``loss``, ``grad_norm``, ``lr`` and, for one
     micro-batch, ``ce`` and ``aux``.  The step turns on ``requires_grad``
     for every parameter of the model."""
-    loss_fn = make_loss_fn(cfg, remat=remat, ce_chunk=ce_chunk)
+    loss_fn = make_loss_fn(cfg, remat=remat, mlstm_chunk=mlstm_chunk,
+                           ce_chunk=ce_chunk)
 
     def grads_of(model, params, batch):
         loss, parts = loss_fn(model, batch)
@@ -151,14 +157,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, *, mlstm_chunk: Optional[int] = None):
     """``prefill_step(model, batch) -> logits`` (no gradient), over
     ``batch["ctx"]`` when the batch has one."""
     tr.check_supported(cfg)
 
     @torch.no_grad()
     def prefill_step(model: tr.LM, batch: dict) -> torch.Tensor:
-        return tr.model_fwd(model, cfg, batch)
+        return tr.model_fwd(model, cfg, batch, mlstm_chunk=mlstm_chunk)
 
     return prefill_step
 

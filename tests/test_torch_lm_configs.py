@@ -79,16 +79,22 @@ def _models(name, seed=0, **moe):
 
 def test_list_archs_names_the_five():
     """The five dense and hybrid configurations, since the MoE slice the
-    two MoE ones, and since the encoder and cross-attention slice
-    ``whisper-medium`` and ``llama-3.2-vision-11b``: nine.  xLSTM waits
-    for its slice."""
-    names = sorted(ALL + ("llama-3.2-vision-11b", "whisper-medium"))
-    assert configs.list_archs() == names and len(names) == 9
+    two MoE ones, since the encoder and cross-attention slice
+    ``whisper-medium`` and ``llama-3.2-vision-11b``, and since the xLSTM
+    slice ``xlstm-1.3b``: ten, every configuration of the reference; a
+    name it lacks is refused."""
+    names = sorted(ALL + ("llama-3.2-vision-11b", "whisper-medium",
+                          "xlstm-1.3b"))
+    assert configs.list_archs() == names and len(names) == 10
+    assert configs.list_archs() == jconfigs.list_archs()
+    cfg = configs.get_config("xlstm-1.3b")
+    assert cfg.n_layers == 48 and cfg.pattern[-1].mixer == "slstm"
+    tr.check_supported(cfg)
     with pytest.raises(KeyError, match="available"):
-        configs.get_config("xlstm-1.3b")
+        configs.get_config("xlstm-7b")
 
 
-@pytest.mark.parametrize("name", ALL)
+@pytest.mark.parametrize("name", ALL + ("xlstm-1.3b",))
 def test_config_equals_reference_field_for_field(name):
     port, ref = configs.get_config(name), jconfigs.get_config(name)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)

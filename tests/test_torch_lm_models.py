@@ -215,16 +215,17 @@ def test_weight_carry_over_unstacks_the_blocks(models):
 
 
 def test_unported_paths_raise(models):
-    """xLSTM, a sharded call and a chunked prefill raise; a MoE layer and
-    MLA, which raised before the MoE/MLA slice, build and run (a forward
-    and a decode step, finite), and so does a cross call, which raised
-    before the encoder and cross-attention slice."""
+    """A sharded call and a chunked prefill raise; a MoE layer and MLA,
+    which raised before the MoE/MLA slice, build and run (a forward and a
+    decode step, finite), and so do a cross call, which raised before the
+    encoder and cross-attention slice, and the xLSTM layers (an mLSTM and
+    an sLSTM), which raised before the xLSTM slice."""
     _, model = models
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        tr.init_model(CFG.replace(pattern=(LayerSpec(mixer="mlstm"),)),
-                      torch.Generator(), "cpu")
     toks = torch.zeros(1, 3, dtype=torch.long)
-    for cfg in (CFG.replace(pattern=(LayerSpec(mlp="moe"),),
+    for cfg in (CFG.replace(pattern=(LayerSpec(mixer="mlstm", mlp="none"),
+                                     LayerSpec(mixer="slstm")),
+                            n_layers=2, rnn_width=64),
+                CFG.replace(pattern=(LayerSpec(mlp="moe"),),
                             moe=MoEConfig(n_experts=4, d_ff_expert=32)),
                 CFG.replace(mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
                                           qk_nope_dim=16, qk_rope_dim=8,

@@ -391,15 +391,17 @@ def _port_grads(model, cfg, batch, ce_chunk):
             for n, p, g in zip(names, params, grads)}
 
 
-def _check_params_after_step(model, cfg, jparams, grads, grad_norm, c):
+def _check_params_after_step(model, cfg, jparams, grads, grad_norm, c,
+                             grad_rtol=GRAD_RTOL):
     """See the module docstring: spacings of the tensor's largest |p| plus
-    the gradient error Adam's first update propagates."""
+    the gradient error Adam's first update propagates (``grad_rtol`` of
+    the tensor's largest gradient)."""
     ref = _unstacked(jparams, cfg)
     clip = min(1.0, c.grad_clip / (grad_norm + 1e-9))
     for name, p in model.named_parameters():
         a, b = p.detach().numpy(), ref[name].numpy()
         g = np.abs(grads[name].numpy()) * clip
-        dg = GRAD_RTOL * g.max()
+        dg = grad_rtol * g.max()
         tol = (STEP_SPACINGS * _spacing(np.abs(b).max())
                + np.minimum(2 * c.lr, c.lr * c.eps * dg / (g + c.eps) ** 2))
         assert (np.abs(a - b) <= tol).all(), (
@@ -473,13 +475,29 @@ def test_chunked_ce_train_step_matches_the_jitted_reference(name):
 
 
 def test_train_step_refuses_what_the_port_lacks():
-    """An xLSTM config is refused (slice 17); a batch with a context,
-    refused before the encoder and cross-attention slice, trains: reduced
-    ``whisper-medium`` (frames through the encoder) gives a finite loss and
-    a gradient to every parameter."""
+    """What was refused trains now: an xLSTM config (refused before the
+    xLSTM slice) takes a step that moves an mLSTM and an sLSTM weight;
+    a batch with a context, refused before the encoder and
+    cross-attention slice: reduced ``whisper-medium`` (frames through the
+    encoder) gives a finite loss and a gradient to every parameter.  A
+    layer the port cannot build is still refused."""
     cfg = configs.make_reduced(configs.get_config("qwen3-4b"))
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        ts.make_loss_fn(cfg.replace(pattern=(LayerSpec(mixer="mlstm"),)))
+    with pytest.raises(ValueError, match="unknown mixer"):
+        ts.make_loss_fn(cfg.replace(pattern=(LayerSpec(mixer="mamba"),)))
+    xcfg = cfg.replace(pattern=(LayerSpec(mixer="mlstm", mlp="none"),
+                                LayerSpec(mixer="slstm")),
+                       n_layers=2, rnn_width=64)
+    model = tr.init_model(xcfg, torch.Generator().manual_seed(0), "cpu")
+    _, batch = _batch(xcfg)
+    step = ts.make_train_step(xcfg, opt.OptConfig(**OPT), mlstm_chunk=8)
+    state = opt.adamw_init(dict(model.named_parameters()),
+                           opt.OptConfig(**OPT))
+    before = [model.layers[0].mlstm.wq_h.detach().clone(),
+              model.layers[1].slstm.r_gates.detach().clone()]
+    _, state, m = step(model, state, batch)
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    assert not torch.equal(before[0], model.layers[0].mlstm.wq_h.detach())
+    assert not torch.equal(before[1], model.layers[1].slstm.r_gates.detach())
     wcfg = configs.make_reduced(configs.get_config("whisper-medium"))
     model = tr.init_model(wcfg, torch.Generator().manual_seed(0), "cpu")
     _, batch = _batch(wcfg)
