@@ -293,7 +293,13 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     the card, 8 steps, and 4 steps resumed to 8: the losses within 1e-5
     (bits equal or not, printed); flash attention and the scan launch
     exactly once per attention or RG-LRU layer per forward throughout (a
-    backward is the plain versions' VJP and launches neither);
+    backward is the plain versions' VJP and launches neither); (d) one
+    step of each reduced configuration of (a) counted by
+    ``analysis.roofline.CostCounter`` on the CPU and on the card (the
+    kernels declaring their work): the flops equal exactly, the bytes
+    equal but for the two branches a step takes by device (the flash
+    output's layout, torch's ``one_hot`` check; :func:`device_branch_bytes`,
+    exactly, op by op), the step's roofline printed;
 22. the MoE and MLA models (``models/mlp.py``'s sort-based MoE,
     ``models/attention.py``'s MLA, the MTP head): (a) ``make_reduced`` of
     ``deepseek-v3-671b`` and ``llama4-maverick-400b-a17b`` in fp32, the
@@ -363,7 +369,14 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     small model alone, ``sequence_logprob`` of each arm, the handoff's
     bytes, ms per decode step against the step's byte bound (the weights
     and the state read and written once), the device time and busy share
-    of a step, the peak memory.
+    of a step, the peak memory; (d) trained: one fp32 step of
+    ``make_reduced`` card against CPU as phase 21 (a) holds it, with and
+    without ``mlstm_chunk`` (loss and ``grad_norm`` within
+    ``XLSTM_RTOL``; every gradient finite), the 48-layer bf16 model 10
+    steps of 2 x 64 tokens with ``remat`` (every gradient finite, the
+    first loss in both mLSTM forms within 2e-2, the loss falling; ms per
+    step, peak memory and the counted step's roofline), and
+    ``launch.train --arch xlstm-1.3b`` resumed as phase 21 (c).
 
 The phases run in the order 1-7, 11, 15-24, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
@@ -379,6 +392,7 @@ and last ``{"ok": true,
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -397,11 +411,11 @@ import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 CKPTS = REPO / "results" / "ckpts"
-# H100 SXM (NVIDIA data sheet): HBM3 rate, fp32 rate outside the tensor
-# cores and dense bf16 tensor-core rate, at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+sys.path.insert(0, str(REPO / "src"))
+# the H100's rates (HBM_BW, PEAK_FLOPS, PEAK_FLOPS_FP32) and each kernel's
+# work, which its bound and the cost counter both take
+from repro_torch.analysis import roofline as rl  # noqa: E402
+
 MAIN_ROWS, WIRE_LEN = 4 * 8, 64  # 8 requests x 4 latent channels, 8x8
 RAW_RTOL, COMPRESSED_RTOL = 1e-4, 1e-3
 # LM paths: 8 prompts of 64 tokens, 64 new tokens, relays at s
@@ -573,8 +587,7 @@ LM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 LM_TIMED_STEPS = 5
 LM_BF16_NAME, LM_BF16_WINDOW, LM_BF16_CHUNK, LM_BF16_STEPS = (
     "gemma2-27b", 16, 16, 10)
-LAUNCH_ARGS = ["--arch", "stablelm-1.6b", "--batch", "2", "--seq", "16",
-               "--ckpt-every", "4"]
+LAUNCH_ARGS = ["--batch", "2", "--seq", "16", "--ckpt-every", "4"]
 # phase 22, MoE and MLA: (a) card against CPU in fp32 on make_reduced of
 # both MoE models, MOE_CHECK_ROWS sequences of MOE_CHECK_SEQ tokens (their
 # training step is phase 21 (a)'s, LM_TRAIN_NAMES); (b) deepseek-v3-671b
@@ -659,6 +672,16 @@ XLSTM_BF16_RTOL = 0.1
 # per-head group norm enlarges what reaches it; dropping the state at
 # every step moves the blocks by 1.25-1.43
 XLSTM_LOGITS_RTOL, XLSTM_BLOCK_RTOL, XLSTM_DROP_FACTOR = 0.3, 0.12, 2.0
+# (d), training: one step of make_reduced in fp32 card against CPU as phase
+# 21 (a), with and without mlstm_chunk XLSTM_CHECK_CHUNK (LM_TRAIN_ROWS x
+# LM_TRAIN_SEQ tokens; the loss and grad_norm within XLSTM_RTOL, every
+# gradient within TRAIN_GRAD_RTOL, the CPU test's XLSTM_GRAD_RTOL); the
+# 48-layer model in bf16, remat on, fp32 moments at LM_TRAIN_OPT's rate,
+# XLSTM_TRAIN_STEPS steps on one batch of XLSTM_TRAIN_ROWS x
+# XLSTM_TRAIN_SEQ tokens, the first step's loss against the chunkwise
+# form's (chunk XLSTM_CHECK_CHUNK) within XLSTM_FORMS_TOL; launch.train
+# --arch xlstm-1.3b resumed as phase 21 (c)
+XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 2, 64, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -839,53 +862,6 @@ def host_timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
-
-
-def work(name: str, rows: int, length: int, esize: int, guidance: float):
-    """(bytes, fp32 ops) the function needs at one shape: each input read
-    once, each output written once; guidance 1.0 never reads eps_u."""
-    n, scales = rows * length, 4 * rows
-    eps_reads = 1 if guidance == 1.0 else 2
-    cfg_ops = 0 if guidance == 1.0 else 3
-    return {
-        # x, eps in; q, s out; step (6 ops) + quantize (4 ops) per element
-        "fused_cfg_step_quant": ((1 + eps_reads) * n * esize + 8 + n + scales,
-                                 n * (10 + cfg_ops)),
-        # q, s, eps in; stepped rows out; dequantize + step per element
-        "fused_cfg_step_dequant": (n + scales + eps_reads * n * esize + 8
-                                   + n * esize, n * (7 + cfg_ops)),
-        "quant_int8": (n * esize + n + scales, 4 * n),
-        "dequant_int8": (n + scales + 4 * n, n),
-    }[name]
-
-
-def bound(name, rows, length, esize, guidance):
-    nbytes, ops = work(name, rows, length, esize, guidance)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def flash_work(b, h, kv, s, t, d, causal, window, kv_len, esize):
-    """(bytes, operations) one flash-attention call needs at these inputs:
-    q read and the output written once, each key and value that some
-    query attends read once; 4·D operations (two multiply-adds) per
-    attended (query, key) pair."""
-    q_pos, k_pos = np.arange(s)[:, None], np.arange(t)[None, :]
-    mask = np.broadcast_to(k_pos < kv_len, (s, t))
-    if causal:
-        mask = mask & (k_pos <= q_pos)
-    if window is not None:
-        mask = mask & (k_pos > q_pos - window)
-    keys = int(mask.any(axis=0).sum())
-    nbytes = esize * (2 * b * h * s * d + 2 * b * kv * keys * d)
-    return nbytes, 4 * d * b * h * int(mask.sum())
-
-
-def flash_bound(work, dtype):
-    nbytes, ops = work
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def flash_inputs(gen, dev, b, h, kv, s, t, d, dtype, model_layout=False):
@@ -1179,14 +1155,8 @@ def step_times(dev, gen, floor_ms) -> dict:
         plain = timed(lambda: fref.fused_cfg_step_ref(x, ec, eu, **kw))
         lib = timed(lambda: torch.add(x, torch.lerp(eu, ec, g), alpha=RF_DT),
                     records=2)
-        # each distinct input read once, x' written once; the combine's
-        # subtract, multiply and add and the update's multiply and add
-        n, esize = x.numel(), x.element_size()
-        reads = 2 if eu is ec else 3
-        t_bytes = (reads + 1) * n * esize / HBM_BYTES_PER_S
-        t_ops = 5 * n / FP32_OPS_PER_S
-        b_ms = max(t_bytes, t_ops) * 1e3
-        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        b_ms, b_by = rl.bound(rl.step_work(x.numel(), x.element_size(),
+                                           2 if eu is ec else 3))
         f_ms, f_by = max((b_ms, b_by), (floor_ms, "launch"))
         rows[name] = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
                       "guidance": g, "ms": kern["ms"],
@@ -1234,7 +1204,8 @@ def emit_times(dev, gen, floor_ms) -> list:
         x, ec = (torch.randn(rows, length, generator=gen, device=dev)
                  for _ in range(2))
         plan = fops.emit_plan(rows, length, x.dtype, [x.data_ptr(), ec.data_ptr()])
-        b_ms, b_by = bound("fused_cfg_step_quant", rows, length, 4, 1.0)
+        b_ms, b_by = rl.bound(rl.boundary_work("fused_cfg_step_quant", rows,
+                                               length, 4, 1.0))
         k = timed(lambda: fops.fused_cfg_step_quant(x, ec, ec, coeffs))
         p = timed(lambda: fref.fused_cfg_step_quant_ref(
             x, ec, ec, coeffs, guidance=1.0, mode="ddim"))
@@ -3258,12 +3229,15 @@ def lm_train_step_checks(dev, total) -> dict:
     return out
 
 
-def lm_step_case(dev, what, cfg, card, batches, total) -> dict:
+def lm_step_case(dev, what, cfg, card, batches, total, mlstm_chunk=None,
+                 loss_rtol=TRAIN_LOSS_RTOL) -> dict:
     """One case of :func:`lm_train_step_checks`: the model ``card`` (on
     the card) and a copy of it on the CPU, each trained one step on its
     batch of ``batches`` (``"card"``, ``"cpu"``; the same values, a
-    context included if any), checked as that function says; the kernels'
-    launches added to ``total``."""
+    context included if any), checked as that function says, every
+    gradient also finite; the loss, the step's loss and ``grad_norm``
+    within ``loss_rtol``; the kernels' launches added to ``total``.  An
+    xLSTM model's mLSTM layers run chunkwise with ``mlstm_chunk``."""
     import copy
 
     from repro_torch.kernels import build
@@ -3275,7 +3249,7 @@ def lm_step_case(dev, what, cfg, card, batches, total) -> dict:
     c = opt.OptConfig(**LM_TRAIN_OPT)
     models = {"card": card, "cpu": copy.deepcopy(card).to(cpu)}
     with_ctx = "ctx" in batches["card"]
-    loss_fn = ts.make_loss_fn(cfg, remat=False)
+    loss_fn = ts.make_loss_fn(cfg, remat=False, mlstm_chunk=mlstm_chunk)
     read, steps, seconds = {}, {}, {}
     for key in ("cpu", "card"):
         model = models[key]
@@ -3286,7 +3260,8 @@ def lm_step_case(dev, what, cfg, card, batches, total) -> dict:
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         read[key] = (float(loss.detach()), dict(zip(names, grads)))
         # the whole step, from the same weights (timed on the CPU)
-        step = ts.make_train_step(cfg, c, remat=False)
+        step = ts.make_train_step(cfg, c, remat=False,
+                                  mlstm_chunk=mlstm_chunk)
         state = opt.adamw_init(dict(model.named_parameters()), c)
         t0 = time.perf_counter()
         _, state, m = step(model, state, batches[key])
@@ -3313,6 +3288,8 @@ def lm_step_case(dev, what, cfg, card, batches, total) -> dict:
     (l_cpu, g_cpu), (l_card, g_card) = read["cpu"], read["card"]
     missing = sorted(n for n in g_cpu if g_cpu[n] is None
                      or g_card[n] is None)
+    nonfinite = sorted(n for n in g_cpu if n not in missing and not (
+        torch.isfinite(g_cpu[n]).all() and torch.isfinite(g_card[n]).all()))
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     grad_rel = {n: float((g_card[n].double() - g.to(dev).double())
                          .abs().max() / g.to(dev).double().abs().max()
@@ -3361,11 +3338,12 @@ def lm_step_case(dev, what, cfg, card, batches, total) -> dict:
     print(f"LM training step card vs CPU, {what}: {json.dumps(res)}")
     check(missing == [], f"{what}: parameters without a gradient "
           f"{missing}")
-    check(loss_rel <= TRAIN_LOSS_RTOL,
+    check(nonfinite == [], f"{what}: gradients not finite {nonfinite}")
+    check(loss_rel <= loss_rtol,
           f"{what}: loss card {l_card} vs CPU {l_cpu}")
     check(max(grad_rel.values()) <= TRAIN_GRAD_RTOL,
           f"{what}: gradient card vs CPU rel {max(grad_rel.values())}")
-    check(max(metric_rel.values()) <= TRAIN_LOSS_RTOL,
+    check(max(metric_rel.values()) <= loss_rtol,
           f"{what}: step metrics card {m_card} vs CPU {m_cpu}")
     check(lr_ulps <= TRAIN_ADAM_ULPS, f"{what}: lr {lr_ulps} ulps")
     check(excess <= 1.0, f"{what}: parameters after a step beyond their "
@@ -3459,9 +3437,10 @@ def lm_bf16_training(dev, total) -> dict:
     return out
 
 
-def lm_launch_resume(dev, total) -> dict:
-    """Phase 21 (c): ``python -m repro_torch.launch.train``'s ``main`` on
-    the card (its default device): 8 steps, then 4 steps into another
+def lm_launch_resume(dev, total, arch: str = "stablelm-1.6b") -> dict:
+    """Phase 21 (c) (and 24 (d) with ``arch`` xlstm-1.3b): ``python -m
+    repro_torch.launch.train --arch <arch>``'s ``main`` on the card (its
+    default device), reduced: 8 steps, then 4 steps into another
     directory resumed to 8 (the reference's resume test); the resumed
     losses within its ``rtol=1e-5`` of the uninterrupted run's, and
     whether the bits are equal (printed)."""
@@ -3469,19 +3448,18 @@ def lm_launch_resume(dev, total) -> dict:
     from repro_torch.kernels import build
     from repro_torch.launch import train as launch_train
 
-    cfg = configs.make_reduced(configs.get_config("stablelm-1.6b"))
+    cfg = configs.make_reduced(configs.get_config(arch))
+    args = ["--arch", arch] + LAUNCH_ARGS
     build.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        full = launch_train.main(LAUNCH_ARGS + ["--steps", "8",
-                                                "--ckpt-dir", f"{tmp}/a"])
+        full = launch_train.main(args + ["--steps", "8",
+                                         "--ckpt-dir", f"{tmp}/a"])
         seconds = time.perf_counter() - t0
-        launch_train.main(LAUNCH_ARGS + ["--steps", "4",
-                                         "--ckpt-dir", f"{tmp}/b"])
-        resumed = launch_train.main(LAUNCH_ARGS + [
+        launch_train.main(args + ["--steps", "4", "--ckpt-dir", f"{tmp}/b"])
+        resumed = launch_train.main(args + [
             "--steps", "8", "--resume", "--ckpt-dir", f"{tmp}/b"])
-        files = sorted(p.name for p in Path(f"{tmp}/b/stablelm-1.6b")
-                       .iterdir())
+        files = sorted(p.name for p in Path(f"{tmp}/b/{arch}").iterdir())
     got = {n: build.LAUNCHES[n] for n in ("flash_attention", "rglru_scan")}
     want = lm_launches(cfg, 16)
     check(got == want, f"launch.train: launches {got}, want {want}")
@@ -3494,20 +3472,125 @@ def lm_launch_resume(dev, total) -> dict:
           f"launch.train checkpoints {files}")
     out = {"losses": full, "resumed": resumed, "resume_rel": rel,
            "bits_equal": resumed == full[4:], "run_s": seconds}
-    print(f"launch.train on the card (stablelm-1.6b reduced, 8 steps; 4 + "
+    print(f"launch.train on the card ({arch} reduced, 8 steps; 4 + "
           f"resumed to 8): {json.dumps(out)}")
+    return out
+
+
+def device_branch_bytes(cfg, rows: int, seq: int, dev) -> dict:
+    """The bytes, by op, that a training step of ``cfg`` over ``rows`` x
+    ``seq`` tokens (fp32, one forward) counts on the CPU and not on the
+    card, from the two branches a step takes by device:
+
+    * ``flash_layout``: the flash kernel writes its output as (B, S, H,
+      D), so the attention's ``out.transpose(1, 2).reshape(...)`` is a
+      view on the card, and on the CPU a copy (``aten.clone``: read and
+      write) of the plain version's (B, H, S, D) output, once per flash
+      call (``tests/test_torch_analysis.py`` emulates the card's layout);
+    * ``one_hot_check``: torch's ``F.one_hot`` (the MoE's balance term,
+      ``models/mlp.py::_route``, once per MoE layer) checks a CPU tensor's
+      classes (their least and largest, read to the host; the ops depend
+      on torch's version) and leaves a CUDA tensor's to the device:
+      counted here at the routing's shape on both devices."""
+    from repro_torch.models import transformer as tr
+
+    out = collections.Counter({"aten.clone": flash_layers(cfg) * 2 * rows
+                               * seq * cfg.n_heads * cfg.head_dim * 4})
+    moe_layers = sum(spec.mlp == "moe" for spec in tr.layer_specs(cfg))
+    if moe_layers:
+        counts = []
+        for where in ("cpu", dev):
+            idx = torch.zeros(rows, seq, cfg.moe.top_k, dtype=torch.long,
+                              device=where)
+            with rl.CostCounter() as c:
+                F.one_hot(idx, cfg.moe.n_experts)
+            counts.append(c.by_op)
+        for op in set(counts[0]) | set(counts[1]):
+            out[op] += moe_layers * (counts[0].get(op, [0, 0, 0])[2]
+                                     - counts[1].get(op, [0, 0, 0])[2])
+    return {op: n for op, n in out.items() if n}
+
+
+def lm_train_costs(dev, total) -> dict:
+    """Phase 21 (d): one training step of each of ``LM_TRAIN_NAMES``'
+    ``make_reduced`` (fp32, as (a): the same weights and batch on both
+    devices) counted by ``analysis.roofline.CostCounter`` on the CPU (the
+    kernels' plain versions) and on the card (the flash and scan kernels,
+    exactly :func:`lm_launches` of one forward): the flops equal exactly,
+    the bytes equal but for the two branches a step takes by device,
+    :func:`device_branch_bytes` (the CPU's count less the card's equal to
+    it exactly, op by op).  Each case's roofline (``analyze``) on the card
+    is printed."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cpu = torch.device("cpu")
+    c = opt.OptConfig(**LM_TRAIN_OPT)
+    out = {}
+    for k, name in enumerate(LM_TRAIN_NAMES):
+        cfg = configs.make_reduced(configs.get_config(name))
+        card = tr.init_model(cfg, torch.Generator(device=dev)
+                             .manual_seed(40 + k), dev)
+        models = {"card": card, "cpu": copy.deepcopy(card).to(cpu)}
+        counts = {}
+        for key, where in (("cpu", cpu), ("card", dev)):
+            model = models[key]
+            batch = lm_train_batch(cfg, LM_TRAIN_ROWS, LM_TRAIN_SEQ, k, where)
+            step = ts.make_train_step(cfg, c, remat=False)
+            state = opt.adamw_init(dict(model.named_parameters()), c)
+            build.reset_launches()
+            with rl.CostCounter() as counter:
+                _, _, m = step(model, state, batch)
+                float(m["loss"])
+            counts[key] = counter
+        got = {n: build.LAUNCHES[n] for n in ("flash_attention", "rglru_scan")}
+        want = lm_launches(cfg, 1)
+        check(got == want, f"{name} counted step: launches {got}, want {want}")
+        for n in got:
+            total[n] += got[n]
+        a, b = counts["cpu"], counts["card"]
+        explained = device_branch_bytes(cfg, LM_TRAIN_ROWS, LM_TRAIN_SEQ, dev)
+        differ = {op: (a.by_op.get(op), b.by_op.get(op))
+                  for op in set(a.by_op) | set(b.by_op)
+                  if a.by_op.get(op) != b.by_op.get(op)}
+        less = {op: (a.by_op.get(op, [0, 0, 0])[2]
+                     - b.by_op.get(op, [0, 0, 0])[2]) for op in differ}
+        res = {"flops": b.flops, "flops_fp32": b.flops_fp32,
+               "bytes_card": b.bytes, "bytes_cpu": a.bytes,
+               "cpu_less_card": a.bytes - b.bytes,
+               "cpu_less_card_by_op": less, "explained": explained,
+               "kernels": {op: row for op, row in b.by_op.items()
+                           if op.startswith("kernel:")},
+               "roofline": {k: v for k, v in rl.analyze(b.summary(), 1).items()
+                            if k in ("t_compute_s", "t_memory_s", "dominant")}}
+        out[name] = res
+        print(f"LM training step counted, {name}: {json.dumps(res)}")
+        check(a.flops == b.flops and a.flops_fp32 == b.flops_fp32,
+              f"{name}: flops CPU {a.flops} card {b.flops}; by op {differ}")
+        check({op: n for op, n in less.items() if n} == explained
+              and a.bytes - b.bytes == sum(explained.values()),
+              f"{name}: bytes CPU {a.bytes} card {b.bytes}, "
+              f"{explained} explained; by op {differ}")
+        del models, card, counts
+        torch.cuda.empty_cache()
     return out
 
 
 def lm_train_phase(dev) -> dict:
     """Phase 21: LM training on the card, (a) card against CPU, (b) bf16
-    at full width, (c) the driver and its resume.  Returns the phase's
-    kernel launches."""
+    at full width, (c) ``launch.train`` and its resume, (d) a step's cost count
+    card against CPU.  Returns the phase's kernel launches."""
     t0 = time.perf_counter()
     total = dict.fromkeys(KERNELS, 0)
     lm_train_step_checks(dev, total)
     lm_bf16_training(dev, total)
     lm_launch_resume(dev, total)
+    lm_train_costs(dev, total)
     print(f"LM training phase launches: {json.dumps(total)}; "
           f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
     return total
@@ -3725,8 +3808,8 @@ def decode_times(what, model, cfg, prompt, moe_stats) -> dict:
     active = (every - cfg.moe.n_experts * e_bytes
               + moe_stats["distinct_experts_per_decode_call"] * e_bytes)
     out = {"ms_per_step": wall / steps,
-           "bound_ms_every_expert": every / HBM_BYTES_PER_S * 1e3,
-           "bound_ms_active_experts": active / HBM_BYTES_PER_S * 1e3,
+           "bound_ms_every_expert": every / rl.HBM_BW * 1e3,
+           "bound_ms_active_experts": active / rl.HBM_BW * 1e3,
            "weight_gb": every / 1e9, "busy": share}
     out["share_of_bound"] = out["bound_ms_every_expert"] / out["ms_per_step"]
     print(f"{what} decode: {json.dumps(out)}; card: {card_line()}")
@@ -4129,8 +4212,8 @@ def ctx_serve(model, cfg, prompt, ctx, n_new: int) -> dict:
 def ctx_step_bound(model, cfg, ctx) -> dict:
     """A decode step's bound over the context ``ctx``: the bytes it reads
     (every weight once — the embedding whole as a tied head, else its rows
-    — and the context) over ``HBM_BYTES_PER_S``, plus the operations it
-    spends on the context over ``BF16_OPS_PER_S``: the encoder's layers
+    — and the context) over ``rl.HBM_BW``, plus the operations it
+    spends on the context over ``rl.PEAK_FLOPS``: the encoder's layers
     over the frames (projections, MLP, attention), ``ctx_proj``, and each
     cross layer's K/V projections over T rows and its attention of one
     query row.  The decoder's own products are in the bytes."""
@@ -4157,7 +4240,7 @@ def ctx_step_bound(model, cfg, ctx) -> dict:
     ops += n_cross * (2 * 2 * rows * t * cfg.d_model * cfg.n_kv_heads
                       * cfg.head_dim
                       + 4 * cfg.head_dim * rows * cfg.n_heads * t)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / rl.HBM_BW, ops / rl.PEAK_FLOPS
     return {"bound_ms": (t_bytes + t_ops) * 1e3,
             "bytes_ms": t_bytes * 1e3, "context_ops_ms": t_ops * 1e3,
             "weight_and_context_gb": nbytes / 1e9,
@@ -4576,11 +4659,11 @@ def xlstm_period_bf16(dev) -> dict:
 def xlstm_step_bound(model, cache: dict) -> dict:
     """A decode step's least time: every weight read once (the tied
     embedding whole, as the head) and the state read and written once,
-    over ``HBM_BYTES_PER_S``."""
+    over ``rl.HBM_BW``."""
     w = sum(p.numel() * p.element_size() for p in model.parameters())
     s = sum(x.numel() * x.element_size() for c in cache["layers"]
             for x in c.values())
-    return {"bound_ms": (w + 2 * s) / HBM_BYTES_PER_S * 1e3,
+    return {"bound_ms": (w + 2 * s) / rl.HBM_BW * 1e3,
             "weight_gb": w / 1e9, "state_gb": s / 1e9}
 
 
@@ -4764,12 +4847,173 @@ def child_xlstm_step_profile() -> dict:
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
+def xlstm_train_step_checks(dev, total) -> dict:
+    """Phase 24 (d), first part: one training step of
+    ``make_reduced(xlstm-1.3b)`` in fp32, card against CPU from the same
+    weights and batch, as :func:`lm_step_case` holds phase 21 (a)'s (the
+    parameters after the step by its rule), once with the mLSTM in its
+    parallel form and once chunkwise (``XLSTM_CHECK_CHUNK``); the loss and
+    ``grad_norm`` within ``XLSTM_RTOL``; every gradient non-``None`` and
+    finite on both devices, among them the mLSTM's, the sLSTM's
+    (``w_gates``, ``r_gates``, ``gn_scale``) and the embedding's."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tr
+
+    cfg = configs.make_reduced(configs.get_config(XLSTM_NAME))
+    cpu = torch.device("cpu")
+    out = {}
+    for form, chunk in (("parallel", None), ("chunkwise", XLSTM_CHECK_CHUNK)):
+        card = tr.init_model(cfg, torch.Generator(device=dev)
+                             .manual_seed(115), dev)
+        names = {n for n, _ in card.named_parameters()}
+        named = {"embed", "layers.0.mlstm.wq_h", "layers.0.mlstm.w_if",
+                 "layers.7.slstm.w_gates", "layers.7.slstm.r_gates",
+                 "layers.7.slstm.gn_scale"}
+        check(named <= names, f"xLSTM weights {sorted(named - names)}")
+        batches = {key: lm_train_batch(cfg, LM_TRAIN_ROWS, LM_TRAIN_SEQ, 115,
+                                       where)
+                   for key, where in (("card", dev), ("cpu", cpu))}
+        out[form] = lm_step_case(dev, f"{XLSTM_NAME} {form}", cfg, card,
+                                 batches, total, mlstm_chunk=chunk,
+                                 loss_rtol=XLSTM_RTOL)
+        del card
+    return out
+
+
+def xlstm_full_training(dev) -> dict:
+    """Phase 24 (d), second part: ``xlstm-1.3b`` at full width and depth
+    (48 layers, bf16) trained on the card, ``remat`` on, fp32 moments (the
+    default ``state_dtype``) at phase 21 (b)'s rate (``LM_TRAIN_OPT``: the
+    default warm-up of 100 steps gives rates of 3e-6 to 3e-5 over 10 steps,
+    which bf16 weights mostly round away), ``XLSTM_TRAIN_STEPS`` steps on one batch
+    of ``XLSTM_TRAIN_ROWS`` x ``XLSTM_TRAIN_SEQ`` tokens.  Before the first
+    step, every gradient of the loss non-``None`` and finite, and the loss
+    against the chunkwise form's (``XLSTM_CHECK_CHUNK``) within
+    ``XLSTM_FORMS_TOL``.  The first step runs under
+    ``analysis.roofline.CostCounter``: its flops and bytes, ``analyze``'s
+    terms and ``model_flops_estimate`` (6·N_active·D); the others are
+    timed (host clock, synchronized).  The loss is finite and falls; ms
+    per step (median of the timed steps) and the step's bound; the peak
+    memory; after the steps, one AdamW update counted alone (its share of
+    the step's bytes)."""
+    from repro_torch import configs
+    from repro_torch.analysis import params
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.checkpoint import lm_leaf_ranks
+
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = configs.get_config(XLSTM_NAME)
+    model = tr.init_model(cfg, torch.Generator(device=dev).manual_seed(116),
+                          dev)
+    c = opt.OptConfig(**dict(LM_TRAIN_OPT, total_steps=XLSTM_TRAIN_STEPS))
+    batch = lm_train_batch(cfg, XLSTM_TRAIN_ROWS, XLSTM_TRAIN_SEQ, 116, dev)
+    # the first step's gradients, and its loss in both mLSTM forms
+    model.requires_grad_(True)
+    loss, _ = ts.make_loss_fn(cfg, remat=True)(model, batch)
+    names, ps = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, ps, allow_unused=True)
+    missing = [n for n, g in zip(names, grads) if g is None]
+    nonfinite = [n for n, g in zip(names, grads)
+                 if g is not None and not torch.isfinite(g).all()]
+    del grads
+    with torch.no_grad():
+        chunked, _ = ts.make_loss_fn(cfg, remat=True,
+                                     mlstm_chunk=XLSTM_CHECK_CHUNK)(model,
+                                                                    batch)
+    loss = float(loss.detach())
+    forms_rel = abs(float(chunked) - loss) / abs(loss)
+    state = opt.adamw_init(dict(model.named_parameters()), c)
+    step = ts.make_train_step(cfg, c, remat=True)
+    losses, times = [], []
+    with rl.CostCounter() as counter:
+        (_, state, m), ms = host_timed(lambda: step(model, state, batch))
+        losses.append(float(m["loss"]))
+    counted_ms = ms
+    for _ in range(XLSTM_TRAIN_STEPS - 1):
+        (_, state, m), ms = host_timed(lambda: step(model, state, batch))
+        losses.append(float(m["loss"]))
+        times.append(ms)
+    shape = SimpleNamespace(kind="train", global_batch=XLSTM_TRAIN_ROWS,
+                            seq_len=XLSTM_TRAIN_SEQ)
+    roof = rl.analyze(counter.summary(), 1,
+                      model_flops=rl.model_flops_estimate(cfg, shape))
+    step_ms = float(np.median(times))
+    bound_ms = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
+    # the update alone, on gradients of the step's dtype and shapes
+    named = dict(model.named_parameters())
+    zeros = {n: torch.zeros_like(p) for n, p in named.items()}
+    with torch.no_grad(), rl.CostCounter() as update:
+        opt.adamw_update(named, zeros, state, c,
+                         ranks=lm_leaf_ranks(named, cfg))
+    del named, zeros
+    top = sorted(counter.by_op.items(), key=lambda kv: -kv[1][2])[:6]
+    out = {"params_b": cm.count_params(model) / 1e9,
+           "active_params_b": params.active_params(cfg) / 1e9,
+           "held_before_gb": held_gb, "losses": losses,
+           "first_loss_forms_rel": forms_rel,
+           "ms_per_step": step_ms, "ms_by_step": times,
+           "counted_step_ms": counted_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flops": counter.flops, "flops_fp32": counter.flops_fp32,
+           "bytes": counter.bytes, "t_compute_ms": roof["t_compute_s"] * 1e3,
+           "t_memory_ms": roof["t_memory_s"] * 1e3,
+           "dominant": roof["dominant"],
+           "model_flops_estimate": roof["model_flops_total"],
+           "useful_flops_ratio": roof["useful_flops_ratio"],
+           "roofline_fraction": roof["roofline_fraction"],
+           "bound_ms": bound_ms, "share_of_bound": bound_ms / step_ms,
+           "adamw_update_bytes": update.bytes,
+           "adamw_share_of_bytes": update.bytes / counter.bytes,
+           "top_ops_by_bytes": {op: row for op, row in top},
+           "case_s": time.perf_counter() - t0}
+    print(f"xlstm-1.3b trained on the card (bf16, full width and depth, "
+          f"remat, fp32 moments, {XLSTM_TRAIN_STEPS} steps of "
+          f"{XLSTM_TRAIN_ROWS} x {XLSTM_TRAIN_SEQ} tokens): "
+          f"{json.dumps(out)}; card: {card_line()}")
+    check(missing == [] and nonfinite == [],
+          f"xLSTM full: gradients None {missing} or not finite {nonfinite}")
+    check(forms_rel <= XLSTM_FORMS_TOL,
+          f"xLSTM full: first loss, chunkwise vs parallel {forms_rel}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"xLSTM full: losses {losses}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_training(dev, total) -> dict:
+    """Phase 24 (d): xLSTM trained on the card: the fp32 step card against
+    CPU (:func:`xlstm_train_step_checks`), the 48-layer bf16 model
+    (:func:`xlstm_full_training`), ``launch.train --arch xlstm-1.3b``
+    resumed (:func:`lm_launch_resume`).  The first and the last count
+    their card runs' launches themselves (:func:`lm_launches`: none), the
+    48-layer run by :func:`count_launches`; each adds to ``total``."""
+    from repro_torch.device import keep_fp32
+
+    keep_fp32(dev)  # the fp32 step: fp32 products, as launch/train.py
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": xlstm_train_step_checks(dev, total),
+           "full": count_launches(
+               "xLSTM 48-layer training", lambda: xlstm_full_training(dev),
+               dict.fromkeys(KERNELS, 0), total)[0],
+           "launch": lm_launch_resume(dev, total, XLSTM_NAME)}
+    out["case_s"] = time.perf_counter() - t0
+    return out
+
+
 def xlstm_phase(dev) -> dict:
     """Phase 24: xLSTM, (a) card against CPU on the reduced configuration
     in fp32, (b) one period at full width in bf16 card against CPU and the
     two mLSTM forms, (c) ``xlstm-1.3b`` at full width and depth served and
-    relayed.  No hand-written kernel runs on this path: every launch
-    count reads 0 over the phase (:func:`count_launches`)."""
+    relayed, (d) trained (:func:`xlstm_training`).  No hand-written kernel
+    runs on this path: every launch count reads 0 over the phase
+    (:func:`count_launches`)."""
     from repro_torch.device import keep_fp32
 
     t0 = time.perf_counter()
@@ -4780,8 +5024,10 @@ def xlstm_phase(dev) -> dict:
         return {"card_vs_cpu": xlstm_card_vs_cpu(dev),
                 "period_bf16": xlstm_period_bf16(dev),
                 "served": xlstm_served(dev)}
-    out, _ = count_launches("xLSTM phase", run, dict.fromkeys(KERNELS, 0),
-                            total)
+    out, _ = count_launches("xLSTM phase (a)-(c)", run,
+                            dict.fromkeys(KERNELS, 0), total)
+    out["trained"] = xlstm_training(dev, total)
+    check(not any(total.values()), f"xLSTM phase launches {total}")
     print(f"xLSTM phase launches: {json.dumps(total)}; "
           f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
     return out
@@ -5199,7 +5445,7 @@ def flash_times(dev, floor_ms) -> dict:
         plain = timed(lambda: flash_attention_ref(q, k, v, **kw), iters)
         lib = timed(lambda: F.scaled_dot_product_attention(
             q, k_l, v_l, is_causal=causal, enable_gqa=True), iters)
-        b_ms, b_by = flash_bound(flash_work(b, h, kv, s, t, d, causal,
+        b_ms, b_by = rl.bound(rl.flash_work(b, h, kv, s, t, d, causal,
                                             window, kl, 2), torch.bfloat16)
         f_ms, f_by = max((b_ms, b_by), (floor_ms, "launch"))
         rows[name] = {"shape": [b, h, kv, s, t, d, causal, kl],
@@ -5262,11 +5508,7 @@ def rglru_times(dev, floor_ms) -> dict:
         # in one session, so each session's count is checked exactly
         plain = timed(lambda: rglru_scan_ref(a, b), plain_iters,
                       records=3 * shape[1] + 1)
-        n = int(np.prod(shape))
-        # a and b read once, h written once; a multiply and an add each
-        t_bytes, t_ops = 3 * 4 * n / HBM_BYTES_PER_S, 2 * n / FP32_OPS_PER_S
-        b_ms = max(t_bytes, t_ops) * 1e3
-        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        b_ms, b_by = rl.bound(rl.scan_work(int(np.prod(shape))))
         f_ms, f_by = max((b_ms, b_by), (floor_ms, "launch"))
         rows[name] = {"shape": list(shape), "ms": kern["ms"],
                       "call_ms": kern["call_ms"], "plain_ms": plain["ms"],
@@ -5306,7 +5548,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO / "src"))
     from repro_torch.diffusion.families import load_families
     from repro_torch.diffusion import synth
     from repro_torch.kernels import build
@@ -5613,7 +5854,8 @@ def main() -> int:
         }
         out = {}
         for name, (kern, plain, lib) in calls.items():
-            b_ms, b_by = bound(name, rows, length, 4, 1.0)
+            b_ms, b_by = rl.bound(rl.boundary_work(name, rows, length, 4,
+                                                   1.0))
             k, p = timed(kern), timed(plain)
             # the least device time of one launch: the byte or operation
             # bound, or the empty kernel's time where that is larger

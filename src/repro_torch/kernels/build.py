@@ -205,6 +205,12 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
                      f"CUDA, got {sorted(kinds)}")
 
 
+def rows_of(x: torch.Tensor) -> tuple:
+    """``(rows, L)`` of ``x`` seen as rows over its last dim."""
+    length = x.shape[-1]
+    return (x.numel() // length if length else 0), length
+
+
 def check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
     """Validate a kernel operand: dtype, contiguity and (optionally) shape."""
     if t.dtype not in dtypes:

@@ -52,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -136,6 +137,17 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def _work(q, k, v, *, causal=True, window=None, softcap=None, kv_len=None):
+    """:func:`flash_attention`'s declared work (:func:`rl.flash_work`)."""
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    nbytes, ops = rl.flash_work(b, h, kv, s, t, d, causal, window,
+                                t if kv_len is None else int(kv_len),
+                                q.element_size())
+    return nbytes, ops, q.dtype != torch.bfloat16
+
+
+@rl.declares("flash_attention", _work)
 def flash_attention(
     q: torch.Tensor,  # (B, H, S, D)
     k: torch.Tensor,  # (B, KV, T, D)

@@ -19,12 +19,15 @@ import functools
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_sampler.ref import (fused_cfg_step_dequant_ref,
                                                     fused_cfg_step_quant_ref,
                                                     fused_cfg_step_ref)
 
 
+@rl.declares("fused_cfg_step", lambda x, eps_c, eps_u, **kw: (*rl.step_work(
+    x.numel(), x.element_size(), 2 if eps_u is eps_c else 3), True))
 def fused_cfg_step(x, eps_c, eps_u, *, guidance: float = 1.0, c1: float = 1.0,
                    c2: float = 0.0, mode: str = "ddim"):
     """One interior sampler step: ε̂ = ε_u + g·(ε_c − ε_u), then "ddim" x′ =
@@ -152,6 +155,10 @@ def emit_plan(rows: int, length: int, dtype: torch.dtype, ptrs) -> EmitPlan:
     return _emit_plan(rows, length, esize, align)
 
 
+@rl.declares("fused_cfg_step_quant",
+             lambda x, eps_c, eps_u, coeffs, guidance=1.0, **kw: (
+                 *rl.boundary_work("fused_cfg_step_quant", *build.rows_of(x),
+                                   x.element_size(), guidance), True))
 def fused_cfg_step_quant(x, eps_c, eps_u, coeffs, *, guidance: float = 1.0,
                          mode: str = "ddim"):
     """Emit boundary: the step's output is written straight as the wire
@@ -184,6 +191,10 @@ def fused_cfg_step_quant(x, eps_c, eps_u, coeffs, *, guidance: float = 1.0,
     return q, s
 
 
+@rl.declares("fused_cfg_step_dequant",
+             lambda q, s, eps_c, eps_u, coeffs, guidance=1.0, **kw: (
+                 *rl.boundary_work("fused_cfg_step_dequant", *build.rows_of(q),
+                                   eps_c.element_size(), guidance), True))
 def fused_cfg_step_dequant(q, s, eps_c, eps_u, coeffs, *,
                            guidance: float = 1.0, mode: str = "ddim"):
     """Consume boundary: the step reads the int8 payload ``(q, s)`` as its

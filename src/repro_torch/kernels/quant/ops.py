@@ -5,10 +5,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.kernels import build
 from repro_torch.kernels.quant.ref import dequant_int8_ref, quant_int8_ref
 
 
+@rl.declares("quant_int8", lambda x: (*rl.boundary_work(
+    "quant_int8", *build.rows_of(x), x.element_size(), 1.0), True))
 def quant_int8(x: torch.Tensor):
     """Row-wise symmetric int8 over the last dim of ``x`` (fp32 or bf16,
     contiguous): returns ``(q int8 shaped like x, s fp32 (..., 1))``."""
@@ -24,6 +27,8 @@ def quant_int8(x: torch.Tensor):
     return q, s
 
 
+@rl.declares("dequant_int8", lambda q, s: (*rl.boundary_work(
+    "dequant_int8", *build.rows_of(q), 4, 1.0), True))
 def dequant_int8(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """q·s in fp32 for int8 rows ``q`` (..., L) and scales ``s`` (..., 1)."""
     if build.on_cpu(q, s):

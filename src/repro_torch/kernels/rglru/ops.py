@@ -16,10 +16,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.kernels import build
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
 
+@rl.declares("rglru_scan", lambda a, b: (*rl.scan_work(a.numel()), True))
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t ⊙ h_{t-1} + b_t over axis 1 from h_0 = 0, in fp32.
     a, b: (B, S, R), cast to fp32.  Returns h: (B, S, R) fp32."""
