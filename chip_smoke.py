@@ -376,16 +376,47 @@ each failing the run (non-zero exit, no result line) on any mismatch:
     steps of 2 x 64 tokens with ``remat`` (every gradient finite, the
     first loss in both mLSTM forms within 2e-2, the loss falling; ms per
     step, peak memory and the counted step's roofline), and
-    ``launch.train --arch xlstm-1.3b`` resumed as phase 21 (c).
+    ``launch.train --arch xlstm-1.3b`` resumed as phase 21 (c);
+25. the distributed layer (``distributed/{sharding,compat,compression,
+    pipeline_parallel}.py``, the expert-parallel MoE, sharded GQA and
+    the step factories with a mesh), its ranks child processes sharing
+    the card in a gloo group (NCCL refuses two ranks on one device;
+    ``compat`` stages through the host what gloo cannot carry on CUDA
+    tensors, and counts the copies): (a) one ``deepseek-v3-671b`` MoE
+    layer (bf16; 256 experts of d_ff 2,048, top-8, one shared expert;
+    each expert drawn from its own seed) on a 1 x 4 mesh, 64 experts a
+    rank, 64 tokens, against the unsharded ``moe_fwd`` of the same
+    weights run first: routing equal, aux equal, the output within
+    ``DIST_MOE_RTOL``; ms a call both ways, peak memory per rank; (b)
+    ``compressed_psum`` on 4 and 8 ranks, fp32 and bf16 leaves, both
+    quantizers: the reference parity test's checks, then distinct inputs
+    per rank, each rank's error bit for bit against
+    ``fused_error_feedback_step`` alone on the card, the mean the same
+    bits on every rank and within ``world`` spacings of the
+    reconstructions' magnitude from their fp64 mean;
+    ``quant_int8`` and ``dequant_int8`` launches exactly as the code
+    implies (9 a rank); (c) ``pipeline_apply`` on 2 and 4 stages (3
+    layers a stage, d 16, 6 microbatches of 8) against the sequential
+    layers within the reference's 1e-5 (fp32) and 3e-2 (bf16), its
+    ``ppermute`` host copies as the schedule implies; (d) ``qwen3-4b`` at full
+    width cut to ``DIST_QWEN_LAYERS`` (bf16): prefill and
+    ``DIST_STEPS`` teacher-forced decode steps through
+    ``make_prefill_step``/``make_serve_step(mesh=)`` on 1 x 4 and, with
+    head padding (32 heads to 48), on 1 x 3, against the unsharded steps
+    on the card: logits within ``DIST_LOGITS_RTOL``, each clear greedy
+    token (``MARGIN_FACTOR``) equal, flash launches per rank; (e) a bf16
+    weight sharded on 2 x 2, saved and restored onto 4 x 1: every rank's
+    block on the card equal to its slice.
 
-The phases run in the order 1-7, 11, 15-24, 8-10, 12-14.  Every
+The phases run in the order 1-7, 11, 15-25, 8-10, 12-14.  Every
 profiled time comes from a session whose kernel records are complete (see
 :func:`profiled`); the profiled phases run before the LM paths' long
 unprofiled runs where they can.
 
 Prints a ``kernels`` JSON line (a diffusion kernel's ``launches`` summed
-over phases 3 and 15-20; flash attention's over phases 8, the traced
-relay included, 12, 21, 22 and 23; the scan's over 12 and 21), the card's
+over phases 3 and 15-20, the quantizers' also over 25's ranks; flash
+attention's over phases 8, the traced relay included, 12, 21, 22, 23 and
+25's ranks; the scan's over 12 and 21), the card's
 line,
 and last ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -5033,6 +5064,526 @@ def xlstm_phase(dev) -> dict:
     return out
 
 
+# ---- 25. the distributed layer --------------------------------------------
+
+# ranks: child processes sharing the one card in a gloo group (NCCL
+# refuses two ranks on one device); every collective on CUDA tensors goes
+# through repro_torch.distributed.compat, DTensor's own all-reduce aside
+DIST_DIR = REPO / "build" / "dist"
+DIST_TIMEOUT = 300.0  # seconds one spawn of ranks may take
+DIST_MOE_TOKENS, DIST_MOE_SEED = 64, 2500
+# the expert-parallel output against the unsharded one, norm-wise relative:
+# the two sum a token's experts and the shared expert in bf16 in different
+# orders (per rank, then across ranks); read 4.36e-3 (max abs 0.0156) on
+# an H100 80GB HBM3 at 700 W, twice
+DIST_MOE_RTOL = 1e-2
+DIST_PSUM_SHAPE, DIST_PSUM_SEED = (64, 1024), 2600
+DIST_PIPE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}  # reference's
+DIST_PIPE_STAGES, DIST_PIPE_MICRO = (2, 4), 6  # the reference test's sizes
+DIST_QWEN_LAYERS, DIST_PROMPT, DIST_ROWS, DIST_STEPS = 2, 16, 4, 8
+DIST_QWEN_SEED = 2700
+# sharded qwen3-4b logits against the unsharded steps' on the card, bf16,
+# norm-wise relative per step (the head-sharded sums add in another order);
+# read 5.82e-3 (1 x 4) and 5.66e-3 (1 x 3, padded) on an H100 80GB HBM3 at
+# 700 W, twice
+DIST_LOGITS_RTOL = 1.5e-2
+DIST_CKPT_SHAPE, DIST_CKPT_SEED = (64, 256), 2800
+
+
+def dist_spawn(fn, world: int, *args) -> list:
+    """``fn(rank, world, port, *args)`` in ``world`` child processes
+    (spawned, each on the one card), joined within ``DIST_TIMEOUT``; the
+    list of what each rank saved under ``DIST_DIR``."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    for old in DIST_DIR.glob(f"{fn.__name__}.*.pt"):
+        old.unlink()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(fn, args=(world, port) + args, nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"{fn.__name__}: ranks running after {DIST_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    return [torch.load(DIST_DIR / f"{fn.__name__}.{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def dist_init(rank: int, world: int, port: int):
+    """A rank's gloo group and its device (the one card)."""
+    import torch.distributed as dist
+
+    from repro_torch.device import keep_fp32
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    keep_fp32(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    return dev
+
+
+def dist_done(name: str, rank: int, out: dict) -> None:
+    import torch.distributed as dist
+
+    torch.save(out, DIST_DIR / f"{name}.{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_mesh(shape, names):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cuda", shape, mesh_dim_names=names)
+
+
+def dist_moe_cfg():
+    """One ``deepseek-v3-671b`` MoE layer: d 7,168, 256 routed experts
+    (top-8) of d_ff 2,048, one shared expert; bf16."""
+    from repro_torch import configs
+
+    return configs.get_config("deepseek-v3-671b")
+
+
+def dist_moe_weights(cfg, dev, lo: int, hi: int) -> SimpleNamespace:
+    """The MoE's weights with experts ``lo .. hi`` only: each expert drawn
+    from its own seed (so a rank makes its block and the unsharded run
+    the same tensors), the router and the shared expert from theirs."""
+    from repro_torch.models import common as cm
+
+    d, f, bf = cfg.d_model, cfg.moe.d_ff_expert, torch.bfloat16
+    stacks = [torch.empty((hi - lo, d, f), dtype=bf, device=dev),
+              torch.empty((hi - lo, d, f), dtype=bf, device=dev),
+              torch.empty((hi - lo, f, d), dtype=bf, device=dev)]
+    for e in range(lo, hi):
+        g = torch.Generator(device=dev).manual_seed(DIST_MOE_SEED + 1 + e)
+        for w, (fan_in, out) in zip(stacks, ((d, f), (d, f), (f, d))):
+            w[e - lo] = cm.dense_init(g, fan_in, (out,), bf, dev)
+    g = torch.Generator(device=dev).manual_seed(DIST_MOE_SEED)
+    router = cm.dense_init(g, d, (cfg.moe.n_experts,), torch.float32, dev)
+    fs = f * cfg.moe.n_shared
+    shared = SimpleNamespace(w_gate=cm.dense_init(g, d, (fs,), bf, dev),
+                             w_up=cm.dense_init(g, d, (fs,), bf, dev),
+                             w_down=cm.dense_init(g, fs, (d,), bf, dev))
+    x = torch.randn((1, DIST_MOE_TOKENS, d), generator=g, device=dev).to(bf)
+    return SimpleNamespace(router=router, we_gate=stacks[0], we_up=stacks[1],
+                           we_down=stacks[2], shared=shared), x
+
+
+def dist_moe_call(p, cfg, x, mesh=None) -> tuple:
+    """``moe_fwd`` once, recording its routing; then ms a call over 3."""
+    from repro_torch.models import mlp
+
+    routes = []
+    route = mlp._route
+
+    def recording(*a):
+        out = route(*a)
+        routes.append(out[1])
+        return out
+
+    mlp._route = recording
+    try:
+        out, aux = mlp.moe_fwd(p, cfg, x, mesh=mesh)
+    finally:
+        mlp._route = route
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mlp.moe_fwd(p, cfg, x, mesh=mesh)
+    torch.cuda.synchronize()
+    return out, aux, routes[0], (time.perf_counter() - t0) / 3 * 1e3
+
+
+def dist_ranks_main(rank: int, world: int, port: int, parts: tuple) -> None:
+    """One rank of the world-``world`` spawn: the parts named in
+    ``parts`` (moe, psum, pipe, qwen), each with its launches counted
+    from 0 and its host copies."""
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import build
+
+    dev = dist_init(rank, world, port)
+    out = {}
+    for part in parts:
+        build.reset_launches()
+        compat.reset_host_copies()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = DIST_PARTS[part](rank, world, dev)
+        torch.cuda.synchronize()
+        res.update(seconds=time.perf_counter() - t0,
+                   launches=dict(build.LAUNCHES),
+                   host_copies=dict(compat.HOST_COPIES),
+                   peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+        out[part] = res
+    dist_done("dist_ranks_main", rank, out)
+
+
+def dist_rank_moe(rank, world, dev) -> dict:
+    """(a) on a 1 x ``world`` mesh: this rank's block of 256 / world
+    experts as a DTensor, the tokens replicated over ``model`` (data 1)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    cfg = dist_moe_cfg()
+    mesh = dist_mesh((1, world), ("data", "model"))
+    e_blk = cfg.moe.n_experts // world
+    p, x = dist_moe_weights(cfg, dev, rank * e_blk, (rank + 1) * e_blk)
+    for name in ("we_gate", "we_up", "we_down"):
+        setattr(p, name, DTensor.from_local(getattr(p, name), mesh,
+                                            [Replicate(), Shard(0)],
+                                            run_check=False))
+    out, aux, top_idx, ms = dist_moe_call(p, cfg, x, mesh)
+    local = out.to_local()
+    return {"out": local.cpu() if rank == 0 else None,
+            "out_dtype": str(local.dtype), "aux": float(aux.to_local()),
+            "top_idx": top_idx.cpu(), "ms": ms}
+
+
+def dist_psum_inputs(rank: int, dev) -> torch.Tensor:
+    g = torch.Generator(device="cpu").manual_seed(DIST_PSUM_SEED + rank)
+    scale = 0.1 + rank * 0.4
+    return (torch.randn(DIST_PSUM_SHAPE, generator=g) * scale).to(dev)
+
+
+def dist_psum_base(dev) -> torch.Tensor:
+    """The reference parity test's leaf: (4, 64), rows apart by 0.01."""
+    return (torch.ones((4, 64)) * 0.1 + torch.arange(4)[:, None] * 0.01
+            + torch.linspace(-3, 3, 64)[None] * 0.05).to(dev)
+
+
+def dist_rank_psum(rank, world, dev) -> dict:
+    """(b) ``compressed_psum`` over ``pod`` = ``world`` ranks: the
+    reference's parity checks (fp32 and bf16 leaves, both quantizers, 4
+    syncs), then this rank's own input (rowwise).  Each check's bound,
+    one round trip's error, is taken first, and the launches count from
+    0 after it: they are those of ``compressed_psum`` alone."""
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.kernels import build
+    from repro_torch.quantization import QUANTIZERS
+
+    mesh = dist_mesh((world,), ("pod",))
+    dtypes = (torch.float32, torch.bfloat16)
+    steps = {(dtype, qname): float(qz.error(
+        dist_psum_base(dev).to(dtype).float()).abs().max())
+        for dtype in dtypes for qname, qz in QUANTIZERS.items()}
+    build.reset_launches()
+    checks = {}
+    for dtype in dtypes:
+        x = dist_psum_base(dev).to(dtype)
+        exact = x.float()
+        for qname in sorted(QUANTIZERS):
+            step = steps[dtype, qname]
+            reduced, err = compressed_psum({"g": x}, mesh, axis="pod",
+                                           quantizer=qname)
+            e1 = float((reduced["g"] - exact).abs().max())
+            acc = reduced["g"]
+            for _ in range(3):
+                reduced, err = compressed_psum({"g": x}, mesh, axis="pod",
+                                               error_state=err,
+                                               quantizer=qname)
+                acc = acc + reduced["g"]
+            checks[f"{dtype}/{qname}"] = (step, e1, float(
+                (acc / 4 - exact).abs().max()))
+    own = dist_psum_inputs(rank, dev)
+    reduced, err = compressed_psum({"g": own}, mesh, axis="pod")
+    return {"checks": checks, "new_err": err["g"].cpu(),
+            "reduced": reduced["g"].cpu()}
+
+
+def dist_rank_pipe(rank, world, dev) -> dict:
+    """(c) ``pipeline_apply`` over 2 and 4 stages (a ``stage x data``
+    mesh), 3 layers a stage of d 16, 6 microbatches of 8; rank 0 holds it
+    against the sequential layers."""
+    from repro_torch.distributed.pipeline_parallel import pipeline_apply
+
+    errs = {}
+    for n_stages in DIST_PIPE_STAGES:
+        mesh = dist_mesh((n_stages, world // n_stages), ("stage", "data"))
+        g = torch.Generator(device="cpu").manual_seed(2800 + n_stages)
+        w = (torch.randn((n_stages, 3, 16, 16), generator=g) / 4.0).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((DIST_PIPE_MICRO, 8, 16), generator=g).to(
+                dev, dtype)
+            got = pipeline_apply(lambda wp, h: torch.tanh(h @ wp),
+                                 w.to(dtype), x, mesh)
+            seq = x
+            for s in range(n_stages):
+                for layer in range(3):
+                    seq = torch.tanh(seq @ w[s, layer].to(dtype))
+            errs[f"{n_stages}/{dtype}"] = float(
+                (got.float() - seq.float()).abs().max())
+    return {"errs": errs}
+
+
+def dist_qwen_cfg(padding: bool):
+    from repro_torch import configs
+
+    return configs.get_config("qwen3-4b").replace(
+        n_layers=DIST_QWEN_LAYERS, attn_head_padding=padding)
+
+
+def dist_qwen_run(cfg, dev, tokens, mesh=None) -> tuple:
+    """``make_prefill_step`` over the prompt, then ``DIST_STEPS`` steps of
+    ``make_serve_step`` teacher-forced on ``tokens`` (B, prompt + steps):
+    each step's last-position logits (fp32, on the host), and the flash
+    launches."""
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import train_step as ts
+
+    g = torch.Generator(device=dev).manual_seed(DIST_QWEN_SEED)
+    model = tr.init_model(cfg, g, dev)
+    kw = {}
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+
+        sharding.distribute(model, mesh, cfg=cfg)
+        kw = {"mesh": mesh}
+
+    def whole(t):
+        return compat.replicated(t, mesh) if mesh is not None else t
+
+    launches = build.LAUNCHES["flash_attention"]
+    prompt = tokens[:, :DIST_PROMPT]
+    logits = [whole(ts.make_prefill_step(cfg, **kw)(
+        model, {"tokens": prompt}))[:, -1].float().cpu()]
+    cache = tr.init_model_cache(cfg, tokens.shape[0], tokens.shape[1],
+                                device=dev)
+    serve = ts.make_serve_step(cfg, **kw)
+    for j in range(DIST_PROMPT, DIST_PROMPT + DIST_STEPS):
+        step, cache = serve(model, cache, tokens[:, j:j + 1], j)
+        logits.append(whole(step)[:, -1].float().cpu())
+    torch.cuda.synchronize()
+    return torch.stack(logits, 1), (build.LAUNCHES["flash_attention"]
+                                    - launches)
+
+
+def dist_rank_qwen(rank, world, dev) -> dict:
+    """(d) qwen3-4b at full width (2 layers, bf16) on a 1 x ``world``
+    mesh, head padding on when ``world`` does not divide 32 heads."""
+    tokens = torch.load(DIST_DIR / "qwen_tokens.pt").to(dev)
+    cfg = dist_qwen_cfg(padding=dist_qwen_cfg(False).n_heads % world != 0)
+    mesh = dist_mesh((1, world), ("data", "model"))
+    logits, flash = dist_qwen_run(cfg, dev, tokens, mesh)
+    return {"logits": logits if rank == 0 else None, "flash": flash}
+
+
+def dist_rank_ckpt(rank, world, dev) -> dict:
+    """(e) a sharded checkpoint on CUDA ranks: a bf16 weight placed on a
+    2 x ``world / 2`` mesh, saved (``checkpoint.save`` gathers it through
+    ``compat``), restored onto ``world`` x 1 (the reference's
+    reshard-on-load); whether this rank's block is its slice of the
+    weight."""
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import P
+    from repro_torch.training import checkpoint as ck
+
+    g = torch.Generator(device="cpu").manual_seed(DIST_CKPT_SEED)
+    w = torch.randn(DIST_CKPT_SHAPE, generator=g).to(dev, torch.bfloat16)
+    spec = P("data", "model")
+    path = ck.save(DIST_DIR / "ckpt.bin", {"w": compat.placed(
+        w, dist_mesh((2, world // 2), ("data", "model")), spec)})
+    got, _ = ck.restore(path, {"w": w}, placements={"w": spec},
+                        mesh=dist_mesh((world, 1), ("data", "model")))
+    local = got["w"].to_local()
+    return {"equal": torch.equal(local, w.chunk(world, 0)[rank]),
+            "device": local.device.type}
+
+
+DIST_PARTS = {"moe": dist_rank_moe, "psum": dist_rank_psum,
+              "pipe": dist_rank_pipe, "qwen": dist_rank_qwen,
+              "ckpt": dist_rank_ckpt}
+
+
+def dist_moe_unsharded(dev) -> dict:
+    """(a), first: the unsharded ``moe_fwd`` on the card (its output,
+    routing and aux, ms a call, peak memory), its weights freed before
+    the ranks start."""
+    cfg = dist_moe_cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    p, x = dist_moe_weights(cfg, dev, 0, cfg.moe.n_experts)
+    want, aux, top_idx, ms = dist_moe_call(p, cfg, x)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del p, x
+    torch.cuda.empty_cache()
+    return {"out": want, "aux": float(aux), "top_idx": top_idx.cpu(),
+            "ms": ms, "peak_gb": peak}
+
+
+def dist_moe_check(dev, ranks: list, unsharded: dict) -> dict:
+    """(a): the ranks' output against the unsharded run's."""
+    want, aux, top_idx = (unsharded["out"], unsharded["aux"],
+                          unsharded["top_idx"])
+    ms, peak = unsharded["ms"], unsharded["peak_gb"]
+    got = ranks[0]["moe"]["out"].to(dev)
+    rel = norm_rel(got.float(), want.float())
+    for r, res in enumerate(ranks):
+        check(torch.equal(res["moe"]["top_idx"], top_idx),
+              f"rank {r}'s routing differs from the unsharded top_idx")
+        check(res["moe"]["aux"] == aux,
+              f"rank {r}'s aux {res['moe']['aux']} != {float(aux)}")
+    check(torch.isfinite(got).all() and rel <= DIST_MOE_RTOL,
+          f"expert-parallel MoE rel {rel} over {DIST_MOE_RTOL}")
+    return {"rel": rel, "max_abs": float((got.float() - want.float()).abs()
+                                         .max()),
+            "psum_dtype": ranks[0]["moe"]["out_dtype"],
+            "ms_unsharded": ms, "peak_gb_unsharded": peak,
+            "ms_sharded": [res["moe"]["ms"] for res in ranks],
+            "peak_gb_per_rank": [res["moe"]["peak_gb"] for res in ranks],
+            "host_copies": ranks[0]["moe"]["host_copies"]}
+
+
+def dist_psum_check(dev, ranks: list) -> dict:
+    """(b): the parity checks, each rank's error bit for bit against
+    ``fused_error_feedback_step`` alone on the card over its input, the
+    mean the same bits on every rank and within ``world`` spacings of
+    the reconstructions' magnitude from their fp64 mean (an fp32 sum's
+    rounding in any order); launches."""
+    from repro_torch.quantization import fused_error_feedback_step
+
+    world = len(ranks)
+    for r, res in enumerate(ranks):
+        for key, (step, e1, ek) in res["psum"]["checks"].items():
+            check(e1 <= step * 1.01 + 1e-6, f"psum {world} {key}: one sync "
+                  f"{e1} over the round trip's {step}")
+            check(ek <= e1 / 2 + 1e-6 or e1 < 1e-6, f"psum {world} {key}: "
+                  f"4 syncs {ek} over half of {e1}")
+    recs = []
+    for r, res in enumerate(ranks):
+        x = dist_psum_inputs(r, dev)
+        _, rec, err = fused_error_feedback_step(x, torch.zeros_like(x))
+        check(torch.equal(res["psum"]["new_err"], err.cpu()),
+              f"psum {world}: rank {r}'s error differs from the lone step's")
+        recs.append(rec)
+    got = ranks[0]["psum"]["reduced"]
+    for r, res in enumerate(ranks):
+        check(torch.equal(res["psum"]["reduced"], got),
+              f"psum {world}: rank {r}'s mean differs from rank 0's")
+    got = got.to(dev)
+    mean = sum(r.double() for r in recs) / world
+    size = sum(r.double().abs() for r in recs) / world
+    gap = (got.double() - mean).abs()
+    spacing = torch.from_numpy(np.spacing(size.float().cpu().numpy())).to(dev)
+    ulps = float((gap / spacing.double()).max())
+    check(ulps <= world, f"psum {world}: mean {ulps} spacings off")
+    per_rank = ranks[0]["psum"]["launches"]
+    return {"ulps_of_magnitude": ulps,
+            "launches": {k: sum(res["psum"]["launches"][k] for res in ranks)
+                         for k in ("quant_int8", "dequant_int8")},
+            "launches_per_rank": {k: per_rank[k]
+                                  for k in ("quant_int8", "dequant_int8")},
+            "host_copies": ranks[0]["psum"]["host_copies"]}
+
+
+def dist_qwen_check(dev, world_runs: dict) -> dict:
+    """(d): the unsharded steps on the card, then each world's ranks
+    against them: logits per step within ``DIST_LOGITS_RTOL``, the greedy
+    token equal wherever its top-2 margin is clear (``MARGIN_FACTOR``)."""
+    out = {}
+    want, flash = dist_qwen_run(dist_qwen_cfg(False), dev,
+                                torch.load(DIST_DIR / "qwen_tokens.pt").to(dev))
+    for world, ranks in world_runs.items():
+        got = ranks[0]["qwen"]["logits"]
+        rels = [norm_rel(got[:, j], want[:, j]) for j in range(got.shape[1])]
+        diff = (got - want).abs().amax(-1)
+        top2 = torch.topk(want, 2).values
+        clear = (top2[..., 0] - top2[..., 1]) > MARGIN_FACTOR * diff
+        same = got.argmax(-1) == want.argmax(-1)
+        check(bool(same[clear].all()), f"qwen3-4b on {world} ranks: a clear "
+              f"greedy token differs")
+        check(max(rels) <= DIST_LOGITS_RTOL,
+              f"qwen3-4b on {world} ranks: logits rel {max(rels)}")
+        out[f"1x{world}"] = {
+            "rel_max": max(rels), "clear": int(clear.sum()),
+            "tokens": clear.numel(),
+            "flash_per_rank": [res["qwen"]["flash"] for res in ranks],
+            "host_copies": ranks[0]["qwen"]["host_copies"],
+            "seconds": ranks[0]["qwen"]["seconds"]}
+    out["flash_unsharded"] = flash
+    return out
+
+
+def dist_phase(dev) -> dict:
+    """Phase 25: the distributed layer (``repro_torch.distributed``), its
+    ranks child processes sharing the card in a gloo group: (a) one
+    deepseek-v3-671b MoE layer expert-parallel on 1 x 4 against the
+    unsharded one, (b) ``compressed_psum`` on 4 and 8 ranks, (c)
+    ``pipeline_apply`` on 2 and 4 stages, (d) qwen3-4b (2 layers, bf16)
+    served through ``make_prefill_step``/``make_serve_step(mesh=)`` on
+    1 x 4 and, with head padding (32 -> 48), 1 x 3, (e) a sharded
+    checkpoint saved on 2 x 2 and restored onto 4 x 1.  Returns the
+    ranks' kernel launches (the main path's: the comparisons run here
+    count none)."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build()
+    g = torch.Generator(device="cpu").manual_seed(DIST_QWEN_SEED + 1)
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(torch.randint(0, dist_qwen_cfg(False).vocab_size,
+                             (DIST_ROWS, DIST_PROMPT + DIST_STEPS),
+                             generator=g), DIST_DIR / "qwen_tokens.pt")
+    moe_unsharded = dist_moe_unsharded(dev)
+    four = dist_spawn(dist_ranks_main, 4,
+                      ("moe", "psum", "pipe", "qwen", "ckpt"))
+    eight = dist_spawn(dist_ranks_main, 8, ("psum",))
+    three = dist_spawn(dist_ranks_main, 3, ("qwen",))
+    out = {"moe": dist_moe_check(dev, four, moe_unsharded)}
+    print(f"phase 25 (a) MoE 1x4: {json.dumps(out['moe'])}")
+    out["psum"] = {w: dist_psum_check(dev, ranks)
+                   for w, ranks in ((4, four), (8, eight))}
+    print(f"phase 25 (b) compressed_psum: {json.dumps(out['psum'])}")
+    pipe = four[0]["pipe"]["errs"]
+    for key, err in pipe.items():
+        dtype = torch.float32 if "float32" in key else torch.bfloat16
+        check(err < DIST_PIPE_TOL[dtype], f"pipeline {key}: {err}")
+    # each of the n_micro + P - 1 steps' ppermute stages one copy to the
+    # host and one back (gloo sends no CUDA tensor), per dtype
+    steps = sum(DIST_PIPE_MICRO + n - 1 for n in DIST_PIPE_STAGES)
+    for r, res in enumerate(four):
+        copies = res["pipe"]["host_copies"]
+        check(copies == {"to_host": 2 * steps, "to_device": 2 * steps},
+              f"pipeline rank {r}: host copies {copies}, the schedule "
+              f"implies {2 * steps} each way")
+    print(f"phase 25 (c) pipeline max abs err: {json.dumps(pipe)}; host "
+          f"copies a rank: {json.dumps(four[0]['pipe']['host_copies'])}")
+    out["qwen"] = dist_qwen_check(dev, {4: four, 3: three})
+    print(f"phase 25 (d) qwen3-4b: {json.dumps(out['qwen'])}")
+    for r, res in enumerate(four):
+        check(res["ckpt"]["equal"] and res["ckpt"]["device"] == "cuda",
+              f"checkpoint rank {r}: restored block {res['ckpt']}")
+    print(f"phase 25 (e) checkpoint 2x2 -> 4x1: every rank's block equal; "
+          f"host copies a rank: {json.dumps(four[0]['ckpt']['host_copies'])}")
+    total = dict.fromkeys(KERNELS, 0)
+    for ranks in (four, eight, three):
+        for res in ranks:
+            for part in res.values():
+                for k in KERNELS:
+                    total[k] += part["launches"].get(k, 0)
+    want = sum(v["launches"]["quant_int8"] for v in out["psum"].values())
+    check(total["quant_int8"] == total["dequant_int8"] == want,
+          f"phase 25 quant launches {total}, want {want} each")
+    check(total["quant_int8"] == 9 * (4 + 8),
+          f"phase 25: {total['quant_int8']} quant launches, the code implies "
+          f"9 a rank (2 dtypes x 4 rowwise syncs + 1) over 12 ranks")
+    print(f"distributed phase launches: {json.dumps(total)}; "
+          f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+    return total
+
+
 def mixer_layers(cfg, mixer: str) -> int:
     """The number of layers of ``cfg`` whose mixer is ``mixer``."""
     from repro_torch.models import transformer as tr
@@ -5927,6 +6478,11 @@ def main() -> int:
     # ---- 24. xLSTM ---------------------------------------------------------
     xlstm_phase(dev)
 
+    # ---- 25. the distributed layer ----------------------------------------
+    dist_total = dist_phase(dev)
+    for name in ("quant_int8", "dequant_int8"):
+        launches[name] += dist_total[name]
+
     # ---- 8-10. the qwen3-4b LM path ---------------------------------------
     from repro_torch import configs
 
@@ -5955,7 +6511,8 @@ def main() -> int:
                                    + rg_launches["flash_attention"]
                                    + lm_train_total["flash_attention"]
                                    + moe_total["flash_attention"]
-                                   + ctx_total["flash_attention"])
+                                   + ctx_total["flash_attention"]
+                                   + dist_total["flash_attention"])
     launches["rglru_scan"] = (rg_launches["rglru_scan"]
                               + lm_train_total["rglru_scan"])
     # the rows of the shapes launched most on the LM paths: qwen3-4b's
@@ -5968,7 +6525,7 @@ def main() -> int:
         k: v for k, v in step_rows["path"].items()
         if k not in ("shape", "dtype", "guidance")}
 
-    print(f"phases 1-24: {time.perf_counter() - t_start:.1f} s after the "
+    print(f"phases 1-25: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,

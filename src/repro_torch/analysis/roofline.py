@@ -28,7 +28,7 @@ read once, each output written once (:func:`boundary_work`,
 Hardware constants: H100 SXM (NVIDIA data sheet, 700 W): HBM3 at 3.35
 TB/s, 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32 outside
 them, NVLink 450 GB/s each way.  The collective term reads 0 until the
-counter counts c10d collectives (ROADMAP item 11(c)).
+counter counts c10d collectives (ROADMAP item 11(c2)).
 """
 from __future__ import annotations
 
@@ -259,7 +259,7 @@ def analyze(cost, n_chips: int, *, model_flops: Optional[float] = None) -> dict:
     device, with the H100's constants.  A count's ``raw["flops fp32"]``
     part of the flops runs at :data:`PEAK_FLOPS_FP32`, the rest at
     :data:`PEAK_FLOPS`.  No collective is counted yet (ROADMAP item
-    11(c)), so the collective term over :data:`NVLINK_BW` reads 0."""
+    11(c2)), so the collective term over :data:`NVLINK_BW` reads 0."""
     c = cost_summary(cost)
     flops, nbytes = c.flops, c.bytes_accessed
     fp32 = float(c.raw.get("flops fp32", 0.0) or 0.0)

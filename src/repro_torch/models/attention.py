@@ -32,20 +32,40 @@ latent itself.  Its attention stays plain torch, as it is plain ``jnp`` in
 the reference: its query/key and value head dims differ (192 and 128
 expanded, 576 and 512 absorbed), and the flash kernel takes one head dim.
 
+With a mesh (``mesh=``, a DeviceMesh whose dims are named from
+``pod``/``data``/``model``), GQA runs sharded: each rank of the ``model``
+dim projects, attends over and writes back its own block of query heads
+(``wq`` and ``wo`` redistributed to the head dim, the reference's head
+constraint), and the partial outputs are summed over ``model``
+(``distributed/compat.py``).  K and V are sharded on their heads when
+``n_kv_heads`` divides over ``model`` (each rank's query heads then read
+its own KV heads), else replicated over it, as the reference replicates
+them under head padding; a rank reads the KV heads its query heads map
+to.  When ``model`` does not divide ``n_heads`` and the config asks for
+``attn_head_padding``, the query heads are zero-padded inside each KV
+group (:func:`pad_heads_grouped`) to the reference's ``pad_to``; without
+padding such a call runs every head on every rank of ``model``.  The
+flash kernel sees each rank's local tensors only (under
+``compat.shard_map``), and a cache is written on each rank's block.
+
+MLA takes no mesh, as in the reference.
+
 Not ported, and raising :class:`NotImplementedError` on every device
-(ROADMAP queue 1 says where each is lifted): a sharded GQA call (head
-padding), a cached GQA call with more than one token, and windowed decode
-over a cache longer than the window (which the reference's own caches
-never are).
+(ROADMAP queue 1 says where each is lifted): a cached GQA call with more
+than one token, and windowed decode over a cache longer than the window
+(which the reference's own caches never are).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
+from repro_torch.distributed import compat
+from repro_torch.distributed.sharding import P, batch_axes, mesh_shape
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import common as cm
 
@@ -85,6 +105,146 @@ def init_gqa_cache(cfg: ArchConfig, batch: int, max_len: int, window=None,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def pad_heads_grouped(wq: torch.Tensor, wo: torch.Tensor, n_kv: int,
+                      pad_to: int):
+    """Zero-pad the query heads inside each KV group, so that the (kv,
+    group) layout of the real heads is unchanged: each group of g real
+    heads becomes ``pad_to / n_kv`` heads whose extra rows are zero in
+    ``wq`` (uniform attention) and zero in ``wo`` (no contribution)."""
+    d, h, hd = wq.shape
+    group = h // n_kv
+    pad = pad_to // n_kv - group
+    wq_p = F.pad(wq.reshape(d, n_kv, group, hd),
+                 (0, 0, 0, pad)).reshape(d, pad_to, hd)
+    wo_p = F.pad(wo.reshape(n_kv, group, hd, -1),
+                 (0, 0, 0, 0, 0, pad)).reshape(pad_to, hd, -1)
+    return wq_p, wo_p
+
+
+def head_padding(cfg: ArchConfig, mesh) -> Optional[int]:
+    """The padded head count (the reference's ``pad_to``: the smallest
+    count >= n_heads divisible by the model dim and by ``n_kv_heads``)
+    when ``cfg.attn_head_padding`` is set and the mesh's ``model`` dim
+    does not divide ``n_heads``; else None."""
+    tp = mesh_shape(mesh).get("model", 1) if mesh is not None else 1
+    if not cfg.attn_head_padding or cfg.n_heads % tp == 0:
+        return None
+    pad_to = tp * (-(-cfg.n_heads // tp))
+    while pad_to % cfg.n_kv_heads or pad_to % tp:
+        pad_to += 1
+    return pad_to
+
+
+def _batch_spec(mesh, b: int):
+    """The batch axes when they divide ``b``, else None (replicated)."""
+    ba = batch_axes(mesh)
+    n = 1
+    for a in ba:
+        n *= mesh_shape(mesh)[a]
+    return ba if ba and b % n == 0 else None
+
+
+def kv_spec(cfg: ArchConfig, mesh, batch: int) -> P:
+    """The placement of a K/V tensor or cache (B, T, KV, hd) that sharded
+    GQA attends over: the batch on the batch axes, the KV heads on
+    ``model`` when they divide over it (and no head padding), else
+    replicated over ``model``."""
+    tp = mesh_shape(mesh).get("model", 1)
+    shard = (tp > 1 and head_padding(cfg, mesh) is None
+             and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0)
+    return P(_batch_spec(mesh, batch), None, "model" if shard else None,
+             None)
+
+
+def _local_kv_heads(k: torch.Tensor, heads) -> torch.Tensor:
+    """The KV heads (B, T, ., hd) that query heads ``lo .. lo+hl`` read
+    out of all of ``k`` (replicated over the model dim), ``heads = (lo,
+    hl, group)``: a run of whole groups, the one KV head all the local
+    heads share, or else one KV head per query head."""
+    lo, hl, group = heads
+    first, last = lo // group, (lo + hl - 1) // group
+    if (lo % group == 0 and hl % group == 0) or first == last:
+        return k[:, :, first:last + 1]
+    idx = (lo + torch.arange(hl, device=k.device)) // group
+    return k.index_select(2, idx)
+
+
+def _attend(cfg: ArchConfig, q, k, v, *, window, cache, cache_pos, cross,
+            causal, heads=None):
+    """The attention of projected ``q`` (B, S, H, hd) over ``k``/``v``
+    (B, T, KV, hd) or, cached, over ``cache`` after writing ``k``/``v``
+    at ``cache_pos``: (B, H, S, hd) in ``q``'s dtype.  ``heads`` (lo, hl,
+    group): ``q`` holds query heads ``lo .. lo+hl`` of a model whose
+    query groups are ``group`` wide, over all its KV heads
+    (:func:`_local_kv_heads`)."""
+    s, dt = q.shape[1], q.dtype
+    kv_len = None
+    if cross:
+        # every context row, no mask, no cache; an fp32 context raises a
+        # bf16 query to fp32 (the reference's promotion) and the output
+        # returns to the query's dtype
+        q, k, v = cm.promoted(q, k, v)
+    elif cache is not None:
+        if s != 1:
+            raise NotImplementedError(
+                "a cached call with more than one token is not ported: "
+                "ROADMAP queue 1, item 10 (chunked prefill)")
+        t = cache["k"].shape[1]
+        if window and t > window:
+            raise NotImplementedError(
+                f"windowed decode over a cache longer than the window ({t} "
+                f"> {window}) is not ported: the kernel has no query "
+                f"offset, and init_gqa_cache caps a windowed layer's cache "
+                f"at its window (a ring buffer)")
+        if cache_pos < 0:
+            raise ValueError(f"cache_pos {cache_pos} is negative")
+        if window:
+            # ring buffer of t <= window slots: position p lives in slot
+            # p % t.  RoPE was applied at write time and softmax ignores
+            # slot order, so the written slots (all inside the window)
+            # are the keys
+            slot, kv_len = cache_pos % t, min(cache_pos + 1, t)
+        elif cache_pos < t:
+            slot, kv_len = cache_pos, cache_pos + 1
+        else:
+            raise ValueError(f"cache_pos {cache_pos} outside a cache of {t}")
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        k, v = cache["k"], cache["v"]
+    if heads is not None:
+        k, v = _local_kv_heads(k, heads), _local_kv_heads(v, heads)
+    if cross or cache is not None:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=False,
+                              softcap=cfg.attn_softcap, kv_len=kv_len)
+    else:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=(window or None) if causal else None,
+                              softcap=cfg.attn_softcap)
+    return out.to(dt) if cross else out
+
+
+def _project(cfg: ArchConfig, x, src, wq, wk, wv, q_norm, k_norm,
+             positions, cross: bool):
+    """Q (B, S, H, hd) of ``x``, K and V (B, T, KV, hd) of ``src``, the
+    Q/K norms (before RoPE, as the reference) and RoPE unless ``cross``;
+    ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd)."""
+    b, s, d = x.shape
+    t = src.shape[1]
+    h, kv, hd = wq.shape[1], wk.shape[1], wq.shape[2]
+    q = cm.mm(x, wq.reshape(d, h * hd)).view(b, s, h, hd)
+    k = cm.mm(src, wk.reshape(d, kv * hd)).view(b, t, kv, hd)
+    v = cm.mm(src, wv.reshape(d, kv * hd)).view(b, t, kv, hd)
+    if cfg.qk_norm:
+        q = cm.rms_norm(q, q_norm, cfg.norm_eps)
+        k = cm.rms_norm(k, k_norm, cfg.norm_eps)
+    if not cross:
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
 def gqa_fwd(
     p: GQA,
     cfg: ArchConfig,
@@ -106,69 +266,88 @@ def gqa_fwd(
     The port writes the new K/V into ``cache`` in place (the reference
     returns an updated copy) and returns the same dict.  A cross call
     takes K and V from ``ctx``, skips RoPE, attends over every context
-    row and leaves ``cache`` alone (the reference passes none)."""
+    row and leaves ``cache`` alone (the reference passes none).  With
+    ``mesh`` the sharded path (module docstring); its output is a
+    DTensor, and the cache's tensors become DTensors placed by
+    :func:`kv_spec`."""
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded attention (and its head padding) is not ported: "
-            "ROADMAP queue 1, item 11")
+        return _gqa_sharded(p, cfg, x, positions, window=window, cache=cache,
+                            cache_pos=cache_pos, ctx=ctx, causal=causal,
+                            mesh=mesh)
     b, s, d = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    src = x if ctx is None else ctx  # the keys' and values' source
-    t = src.shape[1]
-    q = (x @ p.wq.reshape(d, h * hd)).view(b, s, h, hd)
-    k = (src @ p.wk.reshape(d, kv * hd)).view(b, t, kv, hd)
-    v = (src @ p.wv.reshape(d, kv * hd)).view(b, t, kv, hd)
-
-    if cfg.qk_norm:  # before RoPE, as the reference
-        q = cm.rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = cm.rms_norm(k, p.k_norm, cfg.norm_eps)
-    if ctx is None:
-        q = cm.apply_rope(q, positions, cfg.rope_theta)
-        k = cm.apply_rope(k, positions, cfg.rope_theta)
-
-    new_cache = cache
-    if ctx is not None:
-        # cross-attention: every context row, no mask, no cache
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=False,
-                              softcap=cfg.attn_softcap)
-    elif cache is None:
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal,
-                              window=(window or None) if causal else None,
-                              softcap=cfg.attn_softcap)
-    else:
-        if s != 1:
-            raise NotImplementedError(
-                "a cached call with more than one token is not ported: "
-                "ROADMAP queue 1, item 10 (chunked prefill)")
-        t = cache["k"].shape[1]
-        if window and t > window:
-            raise NotImplementedError(
-                f"windowed decode over a cache longer than the window ({t} > "
-                f"{window}) is not ported: the kernel has no query offset, "
-                f"and init_gqa_cache caps a windowed layer's cache at its "
-                f"window (a ring buffer)")
-        if cache_pos < 0:
-            raise ValueError(f"cache_pos {cache_pos} is negative")
-        if window:
-            # ring buffer of t <= window slots: position p lives in slot
-            # p % t.  RoPE was applied at write time and softmax ignores
-            # slot order, so the written slots (all inside the window) are
-            # the keys
-            slot, kv_len = cache_pos % t, min(cache_pos + 1, t)
-        elif cache_pos < t:
-            slot, kv_len = cache_pos, cache_pos + 1
-        else:
-            raise ValueError(f"cache_pos {cache_pos} outside a cache of {t}")
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        out = flash_attention(q.transpose(1, 2), cache["k"].transpose(1, 2),
-                              cache["v"].transpose(1, 2), causal=False,
-                              softcap=cfg.attn_softcap, kv_len=kv_len)
+    h, hd = cfg.n_heads, cfg.head_dim
+    cross = ctx is not None
+    q, k, v = _project(cfg, x, x if ctx is None else ctx, p.wq, p.wk, p.wv,
+                       getattr(p, "q_norm", None), getattr(p, "k_norm", None),
+                       positions, cross)
+    out = _attend(cfg, q, k, v, window=window,
+                  cache=None if cross else cache, cache_pos=cache_pos,
+                  cross=cross, causal=causal)
     # the kernel's (B, H, S, hd) output is a view of a (B, S, H, hd) buffer
-    y = out.transpose(1, 2).reshape(b, s, h * hd) @ p.wo.reshape(h * hd, d)
-    return y, new_cache
+    y = cm.mm(out.transpose(1, 2).reshape(b, s, h * hd),
+              p.wo.reshape(h * hd, d))
+    return y, cache
+
+
+def _gqa_sharded(p: GQA, cfg: ArchConfig, x, positions, *, window, cache,
+                 cache_pos, ctx, causal, mesh):
+    """GQA under ``compat.shard_map`` (the module docstring's layout)."""
+    b, s, d = x.shape
+    tp = mesh_shape(mesh).get("model", 1)
+    pad_to = head_padding(cfg, mesh)
+    hp = pad_to or cfg.n_heads
+    heads = tp > 1 and hp % tp == 0  # each rank its own query heads
+    cross = ctx is not None
+    bs = _batch_spec(mesh, b)
+    kvs = kv_spec(cfg, mesh, b)
+    kv_sharded = kvs[2] == "model"
+    wq, wo = p.wq, p.wo
+    if pad_to is not None:
+        # padded on the whole weights (gathered if sharded), then split
+        wq, wo = pad_heads_grouped(compat.replicated(wq, mesh),
+                                   compat.replicated(wo, mesh),
+                                   cfg.n_kv_heads, pad_to)
+    cached = cache is not None and not cross
+    if cached:
+        # written in place on each rank's block: placed as read, once
+        for name in ("k", "v"):
+            cache[name] = compat.placed(cache[name], mesh, kvs)
+    mh = "model" if heads else None
+    mk = "model" if kv_sharded else None
+    none = x.new_zeros(0)
+    norms = (p.q_norm, p.k_norm) if cfg.qk_norm else (none, none)
+    kc = (cache["k"], cache["v"]) if cached else (none, none)
+    kc_spec = kvs if cached else P()
+
+    def body(x_l, src_l, wq_l, wk_l, wv_l, wo_l, qn, kn, pos_l, ck, cv):
+        q, k, v = _project(cfg, x_l, src_l, wq_l, wk_l, wv_l, qn, kn, pos_l,
+                           cross)
+        hl = q.shape[2]
+        local = None
+        if heads and not kv_sharded:  # all KV heads here: read its own
+            local = (compat.axis_index(mesh, "model") * hl, hl,
+                     hp // cfg.n_kv_heads)
+        out = _attend(cfg, q, k, v, window=window,
+                      cache={"k": ck, "v": cv} if cached else None,
+                      cache_pos=cache_pos, cross=cross, causal=causal,
+                      heads=local)
+        y = cm.mm(out.transpose(1, 2).reshape(x_l.shape[0], s,
+                                              hl * cfg.head_dim),
+                  wo_l.reshape(hl * cfg.head_dim, d))
+        if heads:
+            return compat.psum(y, "model", mesh)
+        # each rank of `model` computed all of it: its cotangent counts once
+        return compat.invariant(y, "model", mesh)
+
+    y = compat.shard_map(
+        body, mesh=mesh,
+        in_specs=(P(bs, None, None), P(bs, None, None), P(None, mh, None),
+                  P(None, mk, None), P(None, mk, None), P(mh, None, None),
+                  P(), P(), P(bs, None), kc_spec, kc_spec),
+        out_specs=P(bs, None, None),
+    )(x, x if ctx is None else ctx, wq, p.wk, p.wv, wo, *norms, positions,
+      *kc)
+    return y, cache
 
 
 # ---------------------------------------------------------------------------

@@ -127,5 +127,28 @@ def window_mask(q_len: int, kv_len: int, q_offset: int, window: int,
     return (kv_pos <= q_pos) & (kv_pos > q_pos - window)
 
 
+# ---------------------------------------------------------------------------
+# Type promotion (``jnp``'s, for a context or frames wider than the model)
+# ---------------------------------------------------------------------------
+
+
+def promoted(*xs: torch.Tensor):
+    """``xs`` cast to their common promoted dtype, as ``jnp`` promotes the
+    operands of one product: an fp32 context or fp32 frames against a bf16
+    model's weights make the product fp32, the weights raised one product
+    at a time.  Operands that share a dtype come back as they are (the
+    bits of a call whose context is in the model's dtype do not move)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return tuple(x if x.dtype == dt else x.to(dt) for x in xs)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two (:func:`promoted`)."""
+    x, w = promoted(x, w)
+    return x @ w
+
+
 def count_params(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())

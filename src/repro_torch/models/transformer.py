@@ -23,9 +23,11 @@ A context reaches the decoder as the reference hands it: ``batch["ctx"]``
 config has one (:func:`encode_ctx`; a decode step re-encodes it, as the
 reference does), then through ``ctx_proj`` once per call when the config
 has a ``ctx_dim``; each cross layer attends over it.  A call without a
-context skips the cross blocks, as the reference's does.  A context in
-another dtype than the model's is cast to it where it enters (the
-reference's einsum would promote the products instead).
+context skips the cross blocks, as the reference's does.  A context or
+frames wider than the model (fp32 into bf16) promote as the reference's
+einsums do (``models/common.py::promoted``): ``ctx_proj``, the cross K/V
+and their attention run in fp32, the attention's output returns to the
+query's dtype, and the encoder runs in fp32 over fp32 frames.
 
 Training (``training/train_step.py``) reads the model through
 :func:`train_fwd`: the logits or the final hidden states, the MoE layers'
@@ -41,6 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, EncoderConfig, LayerSpec
 from repro_torch.device import resolve_device
+from repro_torch.distributed import compat
+from repro_torch.distributed.sharding import P, param_pspecs
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
@@ -124,19 +128,72 @@ def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                                device=device)
 
 
+def _replicated_mixer(fn, p: nn.Module, hin, cache: Optional[dict], mesh,
+                      *extra):
+    """``fn(p, hin, cache, *extra)`` (a mixer the reference lets GSPMD
+    shard: MLA, RG-LRU, mLSTM, sLSTM) under ``compat.shard_map`` with its
+    weights replicated over the mesh and the batch split over the batch
+    axes: every rank of ``model`` runs the whole mixer on its batch
+    block, and the output's cotangent counts once over ``model``.  The
+    cache, written in place, is placed so once.  ``extra`` are tensors
+    split with the batch (positions)."""
+    import types
+
+    bs = attn._batch_spec(mesh, hin.shape[0])
+    names = [n for n, _ in p.named_parameters()]
+    keys = sorted(cache) if cache is not None else []
+    if cache is not None:
+        for k in keys:
+            cache[k] = compat.placed(cache[k], mesh, P(bs))
+
+    def body(x_l, *rest):
+        weights, rest = rest[:len(names)], rest[len(names):]
+        c_l, extra_l = rest[:len(keys)], rest[len(keys):]
+        local = types.SimpleNamespace()
+        for name, w in zip(names, weights):
+            *heads, leaf = name.split(".")
+            node = local
+            for part in heads:
+                if not hasattr(node, part):
+                    setattr(node, part, types.SimpleNamespace())
+                node = getattr(node, part)
+            setattr(node, leaf, w)
+        y = fn(local, x_l, dict(zip(keys, c_l)) if keys else None, *extra_l)
+        return compat.invariant(y, "model", mesh) if "model" in \
+            mesh.mesh_dim_names else y
+
+    params = [w for _, w in p.named_parameters()]
+    return compat.shard_map(
+        body, mesh=mesh,
+        in_specs=(P(bs), *[P()] * len(names), *[P(bs)] * len(keys),
+                  *[P(bs)] * len(extra)),
+        out_specs=P(bs),
+    )(hin, *params, *[cache[k] for k in keys], *extra)
+
+
 def layer_fwd(p: Layer, cfg: ArchConfig, spec: LayerSpec, h: torch.Tensor,
               *, positions: torch.Tensor, cache: Optional[dict] = None,
               cache_pos: Optional[int] = None,
               ctx: Optional[torch.Tensor] = None, causal: bool = True,
-              mlstm_chunk: Optional[int] = None):
+              mlstm_chunk: Optional[int] = None, mesh=None):
     """Returns ``(h, new_cache, aux)``: ``aux`` the MoE's balance term
     (fp32), ``None`` for a layer without a MoE.  The cross block runs only
     when the layer has one and ``ctx`` is given; ``causal=False`` makes a
     full-sequence GQA call bidirectional (the encoder's); ``mlstm_chunk``
-    is an mLSTM layer's chunk."""
+    is an mLSTM layer's chunk.  With ``mesh`` (the layer's parameters
+    DTensors, ``distributed/sharding.py::distribute``) GQA and the MoE run
+    their sharded paths, the dense MLP runs on DTensors as its weights
+    are placed, and the other mixers run replicated over ``model``
+    (:func:`_replicated_mixer`)."""
     aux = None
     hin = cm.rms_norm(h, p.norm_mix, cfg.norm_eps)
-    if spec.mixer == "rglru":
+    if mesh is not None and (spec.mixer != "attn" or cfg.mla is not None):
+        out = _replicated_mixer(
+            lambda lp, x, c, pos: _mixer(lp, cfg, spec, x, c, pos, cache_pos,
+                                         causal, mlstm_chunk),
+            _mixer_module(p, cfg, spec), hin, cache, mesh, positions)
+        c2 = cache
+    elif spec.mixer == "rglru":
         out, c2 = rec.rglru_block_fwd(p.rglru, cfg, hin, cache=cache)
     elif spec.mixer == "mlstm":
         out, c2 = rec.mlstm_block_fwd(p.mlstm, cfg, hin, cache=cache,
@@ -149,19 +206,41 @@ def layer_fwd(p: Layer, cfg: ArchConfig, spec: LayerSpec, h: torch.Tensor,
     else:
         out, c2 = attn.gqa_fwd(p.attn, cfg, hin, positions,
                                window=spec.window, cache=cache,
-                               cache_pos=cache_pos, causal=causal)
+                               cache_pos=cache_pos, causal=causal, mesh=mesh)
     h = h + out
     if spec.cross_attn and ctx is not None:
         xin = cm.rms_norm(h, p.norm_cross, cfg.norm_eps)
-        h = h + attn.gqa_fwd(p.cross, cfg, xin, positions, ctx=ctx)[0]
+        h = h + attn.gqa_fwd(p.cross, cfg, xin, positions, ctx=ctx,
+                             mesh=mesh)[0]
     if spec.mlp == "dense":
         h = h + mlp_mod.mlp_fwd(p.mlp, cfg,
                                 cm.rms_norm(h, p.norm_mlp, cfg.norm_eps))
     elif spec.mlp == "moe":
         out, aux = mlp_mod.moe_fwd(p.moe, cfg,
-                                   cm.rms_norm(h, p.norm_mlp, cfg.norm_eps))
+                                   cm.rms_norm(h, p.norm_mlp, cfg.norm_eps),
+                                   mesh=mesh)
         h = h + out
     return h, c2, aux
+
+
+def _mixer_module(p: Layer, cfg: ArchConfig, spec: LayerSpec) -> nn.Module:
+    if spec.mixer in ("rglru", "mlstm", "slstm"):
+        return getattr(p, spec.mixer)
+    return p.attn
+
+
+def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, cache, positions,
+           cache_pos, causal, mlstm_chunk):
+    """The output of a non-GQA mixer (its cache updated in place)."""
+    if spec.mixer == "rglru":
+        return rec.rglru_block_fwd(p, cfg, x, cache=cache)[0]
+    if spec.mixer == "mlstm":
+        return rec.mlstm_block_fwd(p, cfg, x, cache=cache,
+                                   chunk=mlstm_chunk)[0]
+    if spec.mixer == "slstm":
+        return rec.slstm_block_fwd(p, cfg, x, cache=cache)[0]
+    return attn.mla_fwd(p, cfg, x, positions, cache=cache,
+                        cache_pos=cache_pos)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -243,22 +322,54 @@ def embed_scale(cfg: ArchConfig) -> torch.Tensor:
     return torch.sqrt(torch.tensor(float(cfg.d_model))).to(cm.dtype_of(cfg))
 
 
+def _embed(model: LM, cfg: ArchConfig, tokens: torch.Tensor, mesh):
+    """The scaled embedding rows of ``tokens``.  With ``mesh``, under
+    ``compat.shard_map``: a table split over ``model`` (its rule's spec)
+    is looked up on every rank's block of rows, the other ranks' tokens
+    zero, and the blocks summed over ``model`` (one nonzero term: exact);
+    the batch splits over the batch axes."""
+    scale = float(embed_scale(cfg))  # exact as a scalar
+    if mesh is None:
+        return model.embed[tokens] * scale
+    spec = param_pspecs({"embed": model.embed.shape}, mesh)["embed"]
+    bs = attn._batch_spec(mesh, tokens.shape[0])
+    split = tuple(spec)[:1] == ("model",)
+
+    def body(emb_l, tok_l):
+        if not split:
+            rows = emb_l[tok_l]
+            return compat.invariant(rows, "model", mesh) if "model" in \
+                mesh.mesh_dim_names else rows
+        n = emb_l.shape[0]
+        local = tok_l - compat.axis_index(mesh, "model") * n
+        hit = (local >= 0) & (local < n)
+        rows = torch.where(hit[..., None], emb_l[local.clamp(0, n - 1)], 0.0)
+        return compat.psum(rows.to(emb_l.dtype), "model", mesh)
+
+    h = compat.shard_map(body, mesh=mesh, in_specs=(spec, P(bs, None)),
+                         out_specs=P(bs, None, None))(model.embed, tokens)
+    return h * scale
+
+
 def _stack(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
            cache: Optional[dict], cache_pos: Optional[int], remat: bool,
            ctx: Optional[torch.Tensor] = None,
-           mlstm_chunk: Optional[int] = None):
+           mlstm_chunk: Optional[int] = None, mesh=None):
     """The embedding and every layer, then the final norm: ``(h,
     new_cache, aux)``, ``aux`` the MoE layers' balance terms summed in
     layer order (``None`` without a MoE layer).  ``ctx`` (encoded, if the
-    config has an encoder) goes through ``ctx_proj`` here, once."""
-    h = model.embed[tokens] * float(embed_scale(cfg))  # exact as a scalar
+    config has an encoder) goes through ``ctx_proj`` here, once.  With
+    ``mesh`` the tensors are DTensors (a plain ``ctx`` is placed with the
+    batch split over the batch axes)."""
+    h = _embed(model, cfg, tokens, mesh)
     b, s = h.shape[:2]
     offset = 0 if cache is None else cache_pos
-    positions = (offset + torch.arange(s, device=h.device))[None, :].expand(b, s)
-    if ctx is not None:
-        ctx = ctx.to(h.dtype)
-        if cfg.ctx_dim:
-            ctx = ctx @ model.ctx_proj
+    positions = (offset + torch.arange(s, device=tokens.device)
+                 )[None, :].expand(b, s)
+    if ctx is not None and mesh is not None:
+        ctx = compat.placed(ctx, mesh, P(attn._batch_spec(mesh, b)))
+    if ctx is not None and cfg.ctx_dim:
+        ctx = cm.mm(ctx, model.ctx_proj)  # fp32 over an fp32 context
 
     aux = None
     new_layers = []
@@ -268,12 +379,13 @@ def _stack(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
             # an input, so that its gradient flows through the recompute
             h, a = checkpoint(lambda x, c, p=p, spec=spec: layer_fwd(
                 p, cfg, spec, x, positions=positions, ctx=c,
-                mlstm_chunk=mlstm_chunk)[0::2], h, ctx, use_reentrant=False)
+                mlstm_chunk=mlstm_chunk, mesh=mesh)[0::2], h, ctx,
+                use_reentrant=False)
         else:
             c_in = cache["layers"][i] if cache is not None else None
             h, c2, a = layer_fwd(p, cfg, spec, h, positions=positions,
                                  cache=c_in, cache_pos=cache_pos, ctx=ctx,
-                                 mlstm_chunk=mlstm_chunk)
+                                 mlstm_chunk=mlstm_chunk, mesh=mesh)
             new_layers.append(c2)
         if a is not None:
             aux = a if aux is None else aux + a
@@ -293,7 +405,7 @@ def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
            ctx: Optional[torch.Tensor] = None,
            cache: Optional[dict] = None, cache_pos: Optional[int] = None,
            remat: bool = False, mlstm_chunk: Optional[int] = None,
-           return_hidden: bool = False):
+           return_hidden: bool = False, mesh=None):
     """Full-sequence forward (``cache=None``) or cached decode step, over
     the context ``ctx`` (already encoded) when given; ``mlstm_chunk`` for
     the mLSTM layers of a full sequence.
@@ -303,10 +415,12 @@ def lm_fwd(model: LM, cfg: ArchConfig, tokens: torch.Tensor, *,
     sequence only) each layer's activations are recomputed in the backward
     pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
     over its super-block), which changes no value.  The MTP head is not
-    computed here: :func:`train_fwd` gives its logits."""
+    computed here: :func:`train_fwd` gives its logits.  With ``mesh``
+    the model runs sharded (:func:`layer_fwd`) and the results are
+    DTensors."""
     h, new_cache, _ = _stack(model, cfg, tokens, cache=cache,
                              cache_pos=cache_pos, remat=remat, ctx=ctx,
-                             mlstm_chunk=mlstm_chunk)
+                             mlstm_chunk=mlstm_chunk, mesh=mesh)
     if return_hidden:
         return h, new_cache
     return _logits(model, cfg, h), new_cache
@@ -354,29 +468,35 @@ class Encoder(nn.Module):
             ecfg.d_model, dtype=cm.dtype_of(ecfg), device=device))
 
 
-def encoder_fwd(encoder: Encoder, cfg: ArchConfig,
-                frames: torch.Tensor) -> torch.Tensor:
+def encoder_fwd(encoder: Encoder, cfg: ArchConfig, frames: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     """``frames`` (B, n_frames, d_enc), precomputed frame embeddings,
     through every encoder layer (bidirectional self-attention with RoPE
-    at positions ``arange(n_frames)``) and the final norm."""
+    at positions ``arange(n_frames)``) and the final norm; sharded with
+    ``mesh`` as :func:`layer_fwd` runs a layer."""
     ecfg = encoder_cfg(cfg)
     spec = ecfg.pattern[0]
-    h = frames.to(cm.dtype_of(ecfg))
+    # the reference's scan starts from the frames: fp32 frames keep a bf16
+    # encoder's carry fp32 through every layer
+    h = frames.to(torch.promote_types(frames.dtype, cm.dtype_of(ecfg)))
     b, s = h.shape[:2]
     positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
+    if mesh is not None:
+        h = compat.placed(h, mesh, P(attn._batch_spec(mesh, b)))
     for p in encoder.layers:
-        h = layer_fwd(p, ecfg, spec, h, positions=positions, causal=False)[0]
+        h = layer_fwd(p, ecfg, spec, h, positions=positions, causal=False,
+                      mesh=mesh)[0]
     return cm.rms_norm(h, encoder.final_norm, ecfg.norm_eps)
 
 
-def encode_ctx(model: LM, cfg: ArchConfig,
-               ctx: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+def encode_ctx(model: LM, cfg: ArchConfig, ctx: Optional[torch.Tensor],
+               mesh=None) -> Optional[torch.Tensor]:
     """The context the decoder reads: ``ctx`` through the encoder when the
     config has one (the reference's ``train_step.py::_encode_ctx`` and the
     encoder call of its ``model_fwd`` and ``decode_step``), else as
     given."""
     if cfg.encoder is not None and ctx is not None:
-        return encoder_fwd(model.encoder, cfg, ctx)
+        return encoder_fwd(model.encoder, cfg, ctx, mesh=mesh)
     return ctx
 
 
@@ -386,12 +506,12 @@ def encode_ctx(model: LM, cfg: ArchConfig,
 
 
 def model_fwd(model: LM, cfg: ArchConfig, batch: dict, *,
-              mlstm_chunk: Optional[int] = None) -> torch.Tensor:
+              mlstm_chunk: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Prefill forward of ``batch["tokens"]`` over ``batch["ctx"]`` (if
     any): the logits."""
-    ctx = encode_ctx(model, cfg, batch.get("ctx"))
+    ctx = encode_ctx(model, cfg, batch.get("ctx"), mesh)
     return lm_fwd(model, cfg, batch["tokens"], ctx=ctx,
-                  mlstm_chunk=mlstm_chunk)[0]
+                  mlstm_chunk=mlstm_chunk, mesh=mesh)[0]
 
 
 def mtp_logits(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -403,7 +523,8 @@ def mtp_logits(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def train_fwd(model: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
-              mlstm_chunk: Optional[int] = None, return_hidden: bool = False):
+              mlstm_chunk: Optional[int] = None, return_hidden: bool = False,
+              mesh=None):
     """The training forward of ``batch["tokens"]`` over ``batch["ctx"]``
     (encoded by :func:`encode_ctx`), as the reference's
     ``model_fwd``/``lm_fwd`` hand it to the loss: ``(logits, or the final
@@ -411,12 +532,14 @@ def train_fwd(model: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
     layers' balance term, an fp32 zero without a MoE layer; ``extras``
     holds ``"mtp_logits"`` when the config has an MTP head, on the logits
     path only (the reference's chunked loss leaves MTP out)."""
-    ctx = encode_ctx(model, cfg, batch.get("ctx"))
+    ctx = encode_ctx(model, cfg, batch.get("ctx"), mesh)
     h, _, aux = _stack(model, cfg, batch["tokens"], cache=None,
                        cache_pos=None, remat=remat, ctx=ctx,
-                       mlstm_chunk=mlstm_chunk)
+                       mlstm_chunk=mlstm_chunk, mesh=mesh)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if mesh is not None:
+            aux = compat.placed(aux, mesh, P())
     if return_hidden:
         return h, aux, {}
     extras = {"mtp_logits": mtp_logits(model, cfg, h)} if cfg.mtp else {}
@@ -429,11 +552,13 @@ def init_model_cache(cfg: ArchConfig, batch: int, max_len: int, *,
 
 
 def decode_step(model: LM, cfg: ArchConfig, cache: dict, token: torch.Tensor,
-                cache_pos: int, *, ctx: Optional[torch.Tensor] = None):
+                cache_pos: int, *, ctx: Optional[torch.Tensor] = None,
+                mesh=None):
     """One-token decode over the context ``ctx`` (if any; re-encoded at
     every step when the config has an encoder, as the reference does).
     token: (B, 1) int.  Returns ``(logits, new_cache)``; the cache is
-    updated in place."""
-    ctx = encode_ctx(model, cfg, ctx)
+    updated in place (with ``mesh``, its tensors become DTensors placed as
+    the layers read them, on the first step)."""
+    ctx = encode_ctx(model, cfg, ctx, mesh)
     return lm_fwd(model, cfg, token, ctx=ctx, cache=cache,
-                  cache_pos=cache_pos)
+                  cache_pos=cache_pos, mesh=mesh)

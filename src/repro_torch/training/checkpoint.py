@@ -164,13 +164,34 @@ def _pack_array(a) -> dict:
     "data"}``; bf16 under the name numpy's ``bfloat16`` extension type
     (the reference's) gives it."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().to("cpu").contiguous()
+        a = _whole(a).detach().to("cpu").contiguous()
         if a.dtype == torch.bfloat16:
             return {"dtype": "bfloat16", "shape": list(a.shape),
                     "data": a.view(torch.int16).numpy().tobytes()}
         a = a.numpy()
     return {"dtype": str(a.dtype), "shape": list(a.shape),
             "data": np.ascontiguousarray(a).tobytes()}
+
+
+def _whole(a: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (a collective: every rank calls it), a
+    tensor as it is.  The gather is ``compat.replicated``'s, not DTensor's
+    ``full_tensor``, whose Shard -> Replicate crashed a gloo group on CUDA
+    tensors."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import compat
+
+    if not isinstance(a, DTensor):
+        return a
+    with torch.no_grad():
+        return compat.replicated(a, a.device_mesh)
+
+
+def _sharded(flat: Mapping[str, object]) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(a, DTensor) for a in flat.values())
 
 
 def _unpack_tensor(d: dict) -> torch.Tensor:
@@ -188,15 +209,26 @@ def save(path, flat: Mapping[str, object], meta: Optional[dict] = None, *,
     or :func:`flatten` gives it) as the reference's ``save`` does: the same
     payload, written to a ``.tmp`` file and moved over ``path``.  With
     ``step``, ``path`` is a directory: the file is ``step_%08d.ckpt``
-    there, and the ``latest`` symlink moves to it (also atomically)."""
+    there, and the ``latest`` symlink moves to it (also atomically).
+
+    DTensors (a sharded model's) are saved whole, independent of the mesh
+    they live on, as the reference saves its sharded arrays: every rank
+    calls ``save`` (the gathers are collectives), rank 0 writes, and the
+    ranks meet at a barrier after the write."""
+    import torch.distributed as dist
+
     path = Path(path)
     if step is not None:
         path = path / f"step_{step:08d}.ckpt"
-    path.parent.mkdir(parents=True, exist_ok=True)
+    sharded = _sharded(flat)
     payload = {
         "meta": meta or {},
         "arrays": {k: _pack_array(a) for k, a in flat.items()},
     }
+    if sharded and dist.get_rank() != 0:
+        dist.barrier()
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(".tmp")
     tmp.write_bytes(packb(payload))
     os.replace(tmp, path)
@@ -207,6 +239,8 @@ def save(path, flat: Mapping[str, object], meta: Optional[dict] = None, *,
             tmp_l.unlink()
         tmp_l.symlink_to(path.name)
         os.replace(tmp_l, latest)
+    if sharded:
+        dist.barrier()
     return path
 
 
@@ -222,13 +256,20 @@ def save_async(path, flat: Mapping[str, object], meta: Optional[dict] = None,
     return t
 
 
-def restore(path, like: Mapping[str, torch.Tensor]):
+def restore(path, like: Mapping[str, torch.Tensor], *, mesh=None,
+            placements=None):
     """``({key: tensor}, meta)`` for every key of ``like`` (``{key:
     tensor}`` giving each array's shape and dtype), read from ``path`` (a
     directory means its ``latest``), each cast to ``like``'s dtype, on the
     CPU.  Raises :class:`KeyError` for a missing key and
     :class:`ValueError` for a shape that differs, as the reference's
-    ``restore``."""
+    ``restore``.
+
+    With ``mesh`` and ``placements`` (``{key: spec}``, a
+    :class:`repro_torch.distributed.sharding.P` or DTensor placements)
+    each array is placed on ``mesh`` as a DTensor, on the mesh's device
+    type: every rank keeps its own block of the whole array, whatever
+    mesh wrote it (the reference's reshard-on-load)."""
     path = Path(path)
     if path.is_dir():
         path = path / "latest"
@@ -243,7 +284,21 @@ def restore(path, like: Mapping[str, torch.Tensor]):
             raise ValueError(f"{key}: ckpt {tuple(t.shape)} vs expected "
                              f"{tuple(ref.shape)}")
         out[key] = t
+    if mesh is not None and placements is not None:
+        out = {k: _place(t, mesh, placements[k]) for k, t in out.items()}
     return out, payload["meta"]
+
+
+def _place(t: torch.Tensor, mesh, spec):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import compat, sharding
+
+    pl = (sharding.placements(spec, mesh)
+          if isinstance(spec, sharding.P) else tuple(spec))
+    local = compat._local_chunk(t, mesh, pl).contiguous()
+    return DTensor.from_local(local.to(mesh.device_type), mesh, pl,
+                              run_check=False)
 
 
 def latest_step(ckpt_dir) -> Optional[int]:

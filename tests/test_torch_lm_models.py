@@ -215,7 +215,9 @@ def test_weight_carry_over_unstacks_the_blocks(models):
 
 
 def test_unported_paths_raise(models):
-    """A sharded call and a chunked prefill raise; a MoE layer and MLA,
+    """A chunked prefill raises, and so does a sharded call given something
+    that is not a mesh (the sharded path is ported: it runs on gloo ranks
+    in tests/test_torch_distributed.py); a MoE layer and MLA,
     which raised before the MoE/MLA slice, build and run (a forward and a
     decode step, finite), and so do a cross call, which raised before the
     encoder and cross-attention slice, and the xLSTM layers (an mLSTM and
@@ -250,7 +252,7 @@ def test_unported_paths_raise(models):
     ctx = torch.randn(1, 5, 64, generator=torch.Generator().manual_seed(2))
     out, _ = attn.gqa_fwd(p, CFG, x, pos, ctx=ctx)
     assert out.shape == (1, 2, 64) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(TypeError, match="not a mesh"):
         attn.gqa_fwd(p, CFG, x, pos, mesh=object())
 
 

@@ -253,10 +253,20 @@ def test_moe_weights_keep_the_reference_layout_and_dtypes():
 
 
 def test_sharded_moe_raises():
+    """The expert-parallel path is ported (tests/test_torch_distributed.py
+    holds it on gloo ranks): a mesh that is not a mesh raises, and a mesh
+    whose model dim has one rank takes the local path, bit for bit."""
+    import types
+
     jcfg, cfg = _cfgs(DS)
     _, p = _moe_pair(jcfg, cfg)
-    with pytest.raises(NotImplementedError, match="11\\(c\\)"):
-        mlp_mod.moe_fwd(p, cfg, torch.zeros(1, 2, cfg.d_model), mesh=object())
+    x = torch.randn(1, 2, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    with pytest.raises(TypeError, match="not a mesh"):
+        mlp_mod.moe_fwd(p, cfg, x, mesh=object())
+    one = types.SimpleNamespace(shape={"data": 1, "model": 1})
+    out, aux = mlp_mod.moe_fwd(p, cfg, x, mesh=one)
+    ref, ref_aux = mlp_mod.moe_fwd(p, cfg, x)
+    assert torch.equal(out, ref) and torch.equal(aux, ref_aux)
 
 
 # ---------------------------------------------------------------------------
